@@ -11,21 +11,31 @@ failure.  Phases:
    kernel source;
 2. kernels: each hand-written kernel against its plain torch twin on
    seeded inputs at a spread of shapes — exact equality — with median
-   CUDA-event times;
-3. end to end: the CCS preset with use_pallas=True at bench.py's shapes
-   (2 Mb random genome, 256 reads of 8 kb, snp 0.003, ins/del 0.001,
-   numpy seed 0) through align_reads(..., device="cuda"): a warm-up that
-   also records the largest input each kernel got, then a timed run with
-   the launch counts reset just before and read just after, device round
-   times from CUDA events; fails if a kernel of the path was not
-   launched;
-4. the recorded main-path inputs: each kernel against its plain twin
+   CUDA-event times (K6 at (K, D) buckets up to 2052 lanes in both
+   closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192);
+3. end to end, on one 2 Mb random genome (numpy seed 0), through
+   align_reads(..., device="cuda"), each path a recorded warm-up (the
+   largest input each kernel got, the job mix) and then a timed run with
+   the launch counts reset just before and read just after, device
+   stage times from CUDA events; a path fails if one of its kernels was
+   not launched:
+   - CCS with use_pallas=True and in the default configuration
+     (bench.py's shapes: 256 reads of 8 kb, snp 0.003, ins/del 0.001,
+     numpy seed 0);
+   - ONT (384 reads of 12 kb, snp 0.03, ins/del 0.01, seed 1, one
+     batch) and CLR (256 reads of 10 kb, snp 0.072, ins/del 0.024,
+     seed 2, batches of 128): bench.py's shapes and error split;
+4. K3 on a driver path: copies of the CCS batch's SDP-2 problems with
+   need_full=False through solve_problems; best_chain and chain_vmax
+   must equal the need_full=True results;
+5. the recorded main-path inputs: each kernel against its plain twin
    again (exact), timed, beside its bound;
-5. the first 16 reads on device="cpu" (the plain twins): SAM lines
-   byte-equal to the CUDA run's;
-6. one more CCS use_pallas=True run under torch.profiler: the device's
-   busy share and the device time of the hand kernels against all other
-   (plain torch) kernels.
+6. SAM lines byte-equal between device="cpu" (the plain twins) and
+   device="cuda": the first 16 CCS reads in both configurations, the
+   first 4 ONT and CLR reads;
+7. one more run each of CCS use_pallas=True, ONT and CLR under
+   torch.profiler: the device's busy share and the device time and
+   launches of the hand kernels against all other kernels.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -34,6 +44,7 @@ The line before the last is the kernels JSON object; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -50,25 +61,36 @@ PEAK_F32_OPS_S = 67e12
 # operations per unit of work, counted from the kernels' inner loops:
 # a linear-gap DP cell (substitution select, two adds, max, masks,
 # closure add+max, two arrow compares), a refine DP cell (two lanes,
-# two closures, five-way arrow), and an SDP fragment pair (both lanes:
-# masks, |d| + 1, PWL piece select, multiply, add, floor, clamps, V + w,
-# max).
+# two closures, five-way arrow), a one-gap DP cell (K6: ~20 for the
+# substitution, masks, border seeds, row and five-way arrow, plus an
+# add and a max per doubling step of the closure, see one_gap_bound),
+# an SDP fragment pair (both lanes: masks, |d| + 1, PWL piece select,
+# multiply, add, floor, clamps, V + w, max), and a K3 row (mask, compare,
+# select).
 OPS_PER_CELL = {"banded_global_traced_packed": 10,
                 "banded_pallas_rowsync": 10,
-                "banded_refine_traced_packed": 18}
+                "banded_refine_traced_packed": 18,
+                "one_gap_traced": 20}
 OPS_PER_PAIR = 40
+OPS_PER_MASK_ROW = 3
 
 KERNELS = {
     "chain_scores_blocked": ("lra_tpu_torch/csrc/sdp_blocked.cu",
                              "lra_tpu/ops/sdp_blocked.py:33"),
+    "chain_mask_from_scores": ("lra_tpu_torch/csrc/chain_mask.cu",
+                               "lra_tpu/ops/sdp_blocked.py:143"),
     "banded_global_traced_packed": ("lra_tpu_torch/csrc/banded_global.cu",
                                     "lra_tpu/ops/affine_kernel.py:206"),
     "banded_refine_traced_packed": ("lra_tpu_torch/csrc/banded_refine.cu",
                                     "lra_tpu/ops/affine_kernel.py:546"),
+    "one_gap_traced": ("lra_tpu_torch/csrc/one_gap.cu",
+                       "lra_tpu/ops/one_gap.py:434"),
     "banded_pallas_rowsync": ("lra_tpu_torch/csrc/rowsync.cu",
                               "lra_tpu/ops/affine_pallas.py:225"),
 }
 M, MM, IND = 4, -3, -4      # CCS local_match / local_mismatch / local_indel
+DEV = "cuda"                # the device every path runs on
+T0 = time.perf_counter()
 
 
 def log(*a):
@@ -90,14 +112,21 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(timed(fn)[1])
     return statistics.median(ts)
+
+
+def timed(fn) -> tuple:
+    """(fn(), its CUDA-event time in ms) for one run."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def exact(name, a, b) -> float:
@@ -142,6 +171,45 @@ def banded_inputs(rng, B, S, K, dev):
     return [torch.from_numpy(x).to(dev) for x in (q, t, qlen, tlen, kb)]
 
 
+def one_gap_inputs(rng, B, K, D, query_longer, gaps, dev):
+    """B one-long-gap problems of a (K, D) bucket plus the pad row
+    gap_align adds (qlen 1, tlen 4, kband 1): a short side of D/2..D-1
+    bases with SNPs and a one-base indel, the long side its two flanks
+    around a random gap of max(2k+1, gaps[0])..gaps[1] bases; kband k in
+    1..K-1."""
+    import torch
+
+    from lra_tpu_torch.ops.one_gap import pack_one_gap_bucket
+
+    qs, ts, kbs = [], [], []
+    for _ in range(B):
+        mn = int(rng.integers(max(1, D // 2), D))
+        k = int(min(rng.integers(1, K), mn))
+        lo = max(2 * k + 1, gaps[0])
+        gap = int(rng.integers(lo, max(lo + 1, gaps[1])))
+        flank = rng.integers(0, 4, mn).astype(np.int8)
+        longer = np.concatenate([flank[:mn // 2],
+                                 rng.integers(0, 4, gap).astype(np.int8),
+                                 flank[mn // 2:]])
+        short = flank.copy()
+        mut = rng.random(mn) < 0.05
+        short[mut] = rng.integers(0, 4, int(mut.sum()))
+        p = int(rng.integers(0, mn))
+        short = np.delete(short, p) if rng.random() < 0.5 and mn > 2 \
+            else np.insert(short, p, short[p])
+        short = short[:D - 1]
+        q, t = (longer, short) if query_longer else (short, longer)
+        qs.append(q)
+        ts.append(t)
+        kbs.append(min(k, len(short)))
+    qs.append(np.zeros(1, np.int8))
+    ts.append(np.zeros(4, np.int8))
+    kbs.append(1)
+    packed = pack_one_gap_bucket(qs, ts, K, D)
+    return [torch.from_numpy(a).to(dev)
+            for a in list(packed) + [np.asarray(kbs, np.int32)]]
+
+
 def sdp_inputs(rng, B, N, dev, nvalid=None):
     import torch
 
@@ -161,24 +229,58 @@ def sdp_inputs(rng, B, N, dev, nvalid=None):
 
 # ------------------------------------------------------------ bounds ---
 
+def bound(nbytes, ops) -> tuple:
+    tb, to = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(tb, to) * 1e3, "bytes" if tb > to else "operations"
+
+
 def dp_bound(name, K, q, t, tlen, out) -> tuple:
     """Least time for the DP rows this data needs (rows 0..tlen of the
     band per problem): max(bytes / HBM rate, operations / f32 rate)."""
     rows = int((tlen.clamp(max=t.shape[1]).long() + 1).sum())
     ops = rows * (2 * K + 1) * OPS_PER_CELL[name]
     nbytes = q.numel() + t.numel() + 3 * 4 * q.shape[0] + out.numel()
-    tb, to = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
-    return max(tb, to) * 1e3, "bytes" if tb > to else "operations"
+    return bound(nbytes, ops)
+
+
+def one_gap_bound(args, K, D, L, ops_out) -> tuple:
+    """K6 on this data: the prefix rows 1..min(D+K-1, tBoundary-1) of
+    2K+1 cells and the suffix rows up to tlen of 2K+4 cells that hold a
+    valid cell (the kernel computes no other row), each cell's int8
+    arrow written once, one arrow read per traceback op; inputs read and
+    outputs written once."""
+    qlen = args[4].long()
+    tlen = args[5].long()
+    kb = args[6].long()
+    diag = qlen.minimum(tlen)
+    tb1 = (diag + kb - 1).minimum(tlen)
+    prow = tb1.clamp(0, D + K - 1)
+    tlow = (tlen - diag - kb - 2).clamp(min=0)
+    srow = (tlen - tlow).clamp(0, D + K + 2)
+    cells = int((prow * (2 * K + 1) + srow * (2 * K + 4)).sum())
+    steps = int((ops_out >= 0).sum())
+    per_cell = OPS_PER_CELL["one_gap_traced"] + \
+        2 * math.ceil(math.log2(2 * K + 4))
+    nbytes = sum(4 * a.numel() for a in args) + ops_out.numel() + \
+        8 * qlen.numel() + cells + steps
+    return bound(nbytes, cells * per_cell)
 
 
 def sdp_bound(args) -> tuple:
     qS, valid = args[0], args[7]
     n = valid.sum(dim=1).double()
     pairs = float((n * (n - 1) / 2).sum())
-    ops = pairs * OPS_PER_PAIR
     nbytes = qS.numel() * (4 * 4 + 4 + 3 + 3 * 4)
-    tb, to = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
-    return max(tb, to) * 1e3, "bytes" if tb > to else "operations"
+    return bound(nbytes, pairs * OPS_PER_PAIR)
+
+
+def mask_bound(V, bits) -> tuple:
+    """K3: V and valid read once, one bp read per chain row the walk
+    visits, vmax and the bit words written once."""
+    visited = int(sum(bin(int(w) & 0xFFFFFFFF).count("1")
+                      for w in bits.flatten().tolist()))
+    nbytes = V.numel() * 5 + 4 * visited + 4 * V.shape[0] + 4 * bits.numel()
+    return bound(nbytes, V.numel() * OPS_PER_MASK_ROW + visited)
 
 
 # ------------------------------------------------------------- phases ---
@@ -189,6 +291,7 @@ def kernel_phase(dev) -> None:
     from lra_tpu_torch import preset
     from lra_tpu_torch.ops import affine_kernel as ak
     from lra_tpu_torch.ops import affine_pallas as ap
+    from lra_tpu_torch.ops import one_gap as og
     from lra_tpu_torch.ops import sdp_blocked as sb
     from lra_tpu_torch.ops.gapcost import from_options
 
@@ -206,6 +309,22 @@ def kernel_phase(dev) -> None:
         pms = cuda_ms(lambda: sb.chain_scores_blocked_plain(*a, key), 1)
         log(f"kernel chain_scores_blocked B=16 N={N}: exact; "
             f"{ms:.3f} ms (plain {pms:.1f} ms)")
+    # K3 on K2's last outputs (real backpointers; a prefix of a problem is
+    # a problem, bp[i] < i) with valid prefixes
+    V, bp = got[0], got[1]
+    valid = torch.arange(N, device=dev)[None, :] < \
+        torch.from_numpy(rng.integers(1, N + 1, 16)).to(dev)[:, None]
+    for NN in (64, 512, N):
+        args = (V[:, :NN].contiguous(), bp[:, :NN].contiguous(),
+                valid[:, :NN].contiguous())
+        k3 = sb.chain_mask_from_scores(*args)
+        torch.cuda.synchronize()
+        ref3, pms = timed(lambda: sb.chain_mask_from_scores_plain(*args))
+        exact(f"chain_mask_from_scores N={NN} vmax", k3[0], ref3[0])
+        exact(f"chain_mask_from_scores N={NN} bits", k3[1], ref3[1])
+        ms = cuda_ms(lambda: sb.chain_mask_from_scores(*args), 5)
+        log(f"kernel chain_mask_from_scores B=16 N={NN}: exact; "
+            f"{ms:.4f} ms (plain {pms:.1f} ms)")
     for K in (30, 128, 512):
         for S in (256, 2048):
             a = banded_inputs(rng, 8, S, K, dev)
@@ -261,16 +380,42 @@ def kernel_phase(dev) -> None:
             *a[:4], K, M, MM, IND, a[4]), 1)
         log(f"kernel banded_pallas_rowsync B=64 K=30 S={S}: exact, blocks "
             f"== K4's; {ms:.3f} ms (plain {pms:.1f} ms)")
+    # K6: (K, D) buckets from the narrowest to 2052 lanes, both regimes
+    for B, K, D, gaps in ((64, 16, 64, (200, 400)), (16, 64, 1024,
+                                                      (1000, 50000)),
+                          (4, 512, 2048, (2000, 50000)),
+                          (4, 1024, 1024, (2100, 5000))):
+        for query_longer in (True, False):
+            a = one_gap_inputs(rng, B, K, D, query_longer, gaps, dev)
+            L = 2 * (D + K) + 8
+            got = og.one_gap_traced(*a, K, D, M, MM, IND, L)
+            torch.cuda.synchronize()
+            ref, pms = timed(lambda: og.one_gap_traced_plain(
+                *a, K, D, M, MM, IND, L))
+            for nm, x, y in zip(("ops", "jump", "score"), got, ref):
+                exact(f"one_gap_traced K={K} D={D} {nm}", x, y)
+            gap_op = og.GAPLEFT if query_longer else og.GAPDOWN
+            if int((ref[0][:B] == gap_op).sum()) != B:
+                raise AssertionError(f"one_gap_traced K={K} D={D}: not "
+                                     "one gap op per problem")
+            ms = cuda_ms(lambda: og.one_gap_traced(*a, K, D, M, MM, IND, L),
+                         5)
+            log(f"kernel one_gap_traced B={B + 1} K={K} D={D} "
+                f"{'GAPLEFT' if query_longer else 'GAPDOWN'} gaps "
+                f"{gaps[0]}-{gaps[1]}: exact; {ms:.3f} ms (plain "
+                f"{pms:.1f} ms)")
 
 
 class Recorder:
     """Wraps the kernel entry points the pipeline calls and keeps the
-    inputs of the largest call each kernel gets (warm-up run only)."""
+    inputs of the largest call each kernel gets (warm-up runs only)."""
 
     SITES = (("lra_tpu_torch.pipeline.gap_align", "banded_global_traced_packed"),
              ("lra_tpu_torch.pipeline.gap_align", "banded_refine_traced_packed"),
              ("lra_tpu_torch.pipeline.gap_align", "banded_pallas_rowsync"),
-             ("lra_tpu_torch.chain.driver", "chain_scores_blocked"))
+             ("lra_tpu_torch.pipeline.gap_align", "one_gap_traced"),
+             ("lra_tpu_torch.chain.driver", "chain_scores_blocked"),
+             ("lra_tpu_torch.chain.driver", "chain_mask_from_scores"))
 
     def __init__(self):
         self.best: dict = {}
@@ -292,10 +437,17 @@ class Recorder:
             setattr(mod, fn_name, orig)
         return False
 
+    @staticmethod
+    def work(name, args) -> int:
+        if name == "one_gap_traced":        # B x (D + K) x K
+            return args[0].numel() * args[7]
+        if name in ("chain_scores_blocked", "chain_mask_from_scores"):
+            return args[0].numel()
+        return args[0].numel() * args[4]    # banded: B x S x K
+
     def _wrap(self, name, orig):
         def rec(*args, **kw):
-            work = args[0].numel() * (args[4] if isinstance(args[4], int)
-                                      else 1)
+            work = self.work(name, args)
             if work > self.best.get(name, (-1,))[0]:
                 self.best[name] = (work, [x.clone() if hasattr(x, "clone")
                                           else x for x in args],
@@ -306,23 +458,30 @@ class Recorder:
 
 
 class JobMix:
-    """Tallies the work each device round is given (warm-up run only):
+    """Tallies the work each device round is given (warm-up runs only):
     chaining problems and their largest fragment count per SDP round,
-    jobs and their longest side per alignment round."""
+    jobs and their longest side per alignment round, and the K6 buckets
+    by (Kc, Dc).  Keeps the SDP-2 problems for the K3 driver phase."""
 
     SITES = (("lra_tpu_torch.pipeline.highacc", "solve_problems"),
+             ("lra_tpu_torch.pipeline.lowacc", "solve_problems"),
              ("lra_tpu_torch.pipeline.big_gap", "resolve_big_gaps"),
              ("lra_tpu_torch.pipeline.highacc", "solve_gap_jobs"),
-             ("lra_tpu_torch.pipeline.gap_align", "solve_gap_jobs"))
+             ("lra_tpu_torch.pipeline.gap_align", "solve_gap_jobs"),
+             ("lra_tpu_torch.pipeline.gap_align", "one_gap_traced"))
 
     def __init__(self):
         self.rounds: list = []
+        self.one_gap: dict = {}
+        self.sdp2: list = []
+        self.n_sdp = 0
         self.saved = []
 
     def __enter__(self):
         import importlib
 
-        self.rounds = []
+        self.rounds, self.one_gap, self.sdp2 = [], {}, []
+        self.n_sdp = 0
         self.saved = []
         for mod_name, fn_name in self.SITES:
             mod = importlib.import_module(mod_name)
@@ -337,10 +496,20 @@ class JobMix:
         return False
 
     def _wrap(self, mod_name, fn_name, orig):
+        if fn_name == "one_gap_traced":
+            def og(*args, **kw):
+                key = (args[7], args[8])            # (Kc, Dc)
+                n, b = self.one_gap.get(key, (0, 0))
+                self.one_gap[key] = (n + 1, b + args[0].shape[0])
+                return orig(*args, **kw)
+            return og
+
         def tally(items, *args, **kw):
-            if fn_name == "solve_problems":     # SDP-1, then SDP-2
-                name = "SDP-2" if any(r[0] == "SDP-1" for r in self.rounds) \
-                    else "SDP-1"
+            if fn_name == "solve_problems":     # per batch SDP-1, SDP-2
+                name = ("SDP-1", "SDP-2")[self.n_sdp % 2]
+                self.n_sdp += 1
+                if name == "SDP-2":
+                    self.sdp2.extend(items)
                 sizes = [len(p.qS) for p in items]
                 what = "problems, max fragments"
             elif fn_name == "resolve_big_gaps":
@@ -359,93 +528,185 @@ class JobMix:
         return tally
 
     def lines(self) -> list:
-        return [f"{n}: {c} {w.split(',')[0]}, {w.split(', ')[1]} {m}"
-                for n, c, m, w in self.rounds]
+        out = [f"{n}: {c} {w.split(',')[0]}, {w.split(', ')[1]} {m}"
+               for n, c, m, w in self.rounds]
+        og = ", ".join(f"(Kc={k}, Dc={d}): {n} launches, {b} problems"
+                       for (k, d), (n, b) in sorted(self.one_gap.items()))
+        out.append(f"K6 buckets {og or 'none'}")
+        return out
 
 
-# The CCS main path, in its two configurations: use_pallas=True (the
-# slice's configuration: the narrow band tier on the row-sync kernel) and
-# the default (that tier on banded_global_traced_packed).  Each lists the
-# kernels its run must launch.
+# The paths: label, preset, use_pallas, and the kernels each run must
+# launch.  CCS in its two configurations: use_pallas=True (the narrow
+# band tier on the row-sync kernel) and the default (that tier on
+# banded_global_traced_packed); then ONT and CLR (the lowacc pipeline).
 PATHS = (
-    ("ccs use_pallas=True", True, ("chain_scores_blocked",
-                                   "banded_refine_traced_packed",
-                                   "banded_pallas_rowsync")),
-    ("ccs", False, ("chain_scores_blocked", "banded_refine_traced_packed",
-                    "banded_global_traced_packed")),
+    ("ccs use_pallas=True", "ccs", True,
+     ("chain_scores_blocked", "banded_refine_traced_packed",
+      "banded_pallas_rowsync", "one_gap_traced")),
+    ("ccs", "ccs", False,
+     ("chain_scores_blocked", "banded_refine_traced_packed",
+      "banded_global_traced_packed", "one_gap_traced")),
+    ("ont", "ont", False, ("chain_scores_blocked", "one_gap_traced")),
+    ("clr", "clr", False, ("chain_scores_blocked", "one_gap_traced")),
 )
+# bench.py's shapes and error split (snp 60 %, ins 20 %, del 20 % of the
+# error rate): reads, read length, error, numpy seed, batch size
+SHAPES = {"ccs": (256, 8000, None, 0, 256),
+          "ont": (384, 12000, 0.05, 1, 384),
+          "clr": (256, 10000, 0.12, 2, 128)}
 
 
-def make_workload(genome_len=2_000_000, n_reads=256, read_len=8000):
-    """bench.py's CCS workload, from numpy seed 0."""
-    from lra_tpu_torch import preset
-    from lra_tpu_torch.index.global_index import build_global_index
+def make_genome(genome_len=2_000_000):
+    """The shared 2 Mb random genome, then bench.py's CCS reads, both
+    from numpy seed 0 (the CCS workload of PR 1, unchanged)."""
     from lra_tpu_torch.io.genome import Genome
-    from lra_tpu_torch.sim import random_genome, sample_read
+    from lra_tpu_torch.sim import random_genome
 
     rng = np.random.default_rng(0)
-    genome = Genome.from_seqs([("chr1", random_genome(rng, genome_len))])
-    opts = preset("ccs")
+    return Genome.from_seqs([("chr1", random_genome(rng, genome_len))]), rng
+
+
+def make_workload(kind, genome, ccs_rng):
+    """(batches, index, opts, genome local index) of one preset."""
+    from lra_tpu_torch import preset
+    from lra_tpu_torch.index.global_index import build_global_index
+    from lra_tpu_torch.index.local_index import build_genome_local_index
+    from lra_tpu_torch.sim import sample_read
+
+    n, length, err, seed, batch = SHAPES[kind]
+    opts = preset(kind)
     idx = build_global_index(genome, opts)
+    if kind == "ccs":
+        rng = ccs_rng
+        snp, ind = 0.003, 0.001
+    else:
+        rng = np.random.default_rng(seed)
+        snp, ind = err * 0.6, err * 0.2
     reads = []
-    for i in range(n_reads):
-        r = sample_read(rng, genome.codes, read_len, snp=0.003, ins=0.001,
-                        dele=0.001)
+    for i in range(n):
+        r = sample_read(rng, genome.codes, length, snp=snp, ins=ind,
+                        dele=ind)
         reads.append((f"r{i}", r.codes))
-    return reads, genome, idx, opts
+    gli = None
+    if kind != "ccs":
+        gli = build_genome_local_index(
+            genome, k=min(opts.local_k, 10), w=opts.local_w,
+            window=opts.local_index_window, max_freq=opts.local_max_freq)
+    return [reads[i:i + batch] for i in range(0, n, batch)], idx, opts, gli
 
 
-def e2e_phase(dev, reads, genome, idx, opts, rec) -> tuple:
-    """Drive each CCS path: a recorded warm-up, then a timed run with the
+def align_all(batches, genome, idx, opts, gli, device, timing=None):
+    from lra_tpu_torch.pipeline import align_reads
+
+    states, lines = [], []
+    for bt in batches:
+        s, ln = align_reads(bt, genome, idx, opts, device=device,
+                            genome_li=gli, timing=timing)
+        states += s
+        lines += ln
+    return states, lines
+
+
+def e2e_phase(genome, work, rec, mixes) -> tuple:
+    """Drive each path: a recorded warm-up, then a timed run with the
     launch counts reset just before and read just after.  Returns
-    ({path: SAM lines}, {kernel: launches on its path})."""
+    ({path: SAM lines}, {kernel: launches on the first path that
+    launched it})."""
     import torch
 
     from lra_tpu_torch.ops import _ext
-    from lra_tpu_torch.pipeline import align_reads
     from lra_tpu_torch.utils.timing import CudaEventTiming
 
     all_lines, launches = {}, {}
-    for label, use_pallas, needed in PATHS:
+    for label, kind, use_pallas, needed in PATHS:
+        batches, idx, opts, gli = work[kind]
         opts.use_pallas = use_pallas
+        n = sum(len(b) for b in batches)
         t0 = time.perf_counter()
         mix = JobMix()
         with rec, mix:
-            align_reads(reads, genome, idx, opts, device=dev)
+            align_all(batches, genome, idx, opts, gli, DEV)
         torch.cuda.synchronize()
+        mixes[label] = mix
         log(f"e2e [{label}] warm-up: {time.perf_counter() - t0:.2f} s")
         for ln in mix.lines():
             log(f"  job mix {ln}")
 
-        timing = CudaEventTiming()
+        stages: dict = {}
         _ext.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        states, lines = align_reads(reads, genome, idx, opts, device=dev,
-                                    timing=timing)
+        states, lines = [], []
+        for bt in batches:
+            timing = CudaEventTiming()
+            s, ln = align_all([bt], genome, idx, opts, gli, DEV, timing)
+            states += s
+            lines += ln
+            for k, v in timing.stage_ms().items():
+                stages[k] = stages.get(k, 0.0) + v
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = dict(_ext.LAUNCHES)
         mapped = sum(1 for s in states if not s.unaligned)
-        log(f"e2e [{label}]: {len(reads) / dt:.2f} reads/s ({dt:.3f} s for "
-            f"{len(reads)} reads), mapped {mapped}/{len(reads)}, "
+        log(f"e2e [{label}]: {n / dt:.2f} reads/s ({dt:.3f} s for {n} "
+            f"reads in {len(batches)} batch(es)), mapped {mapped}/{n}, "
             f"{len(lines)} SAM lines")
-        for stage, ms in timing.stage_ms().items():
+        for stage, ms in stages.items():
             log(f"  stage {stage:28s} {ms:10.2f} ms")
         log(f"  launches {json.dumps(counts)}")
         for k in needed:
             if counts[k] == 0:
                 raise AssertionError(f"[{label}] kernel {k} was not "
                                      "launched on the main path")
-            launches.setdefault(k, counts[k])
-        if mapped < 0.9 * len(reads):
-            raise AssertionError(f"[{label}] only {mapped} of {len(reads)} "
-                                 "reads mapped")
+        for k, c in counts.items():
+            if c:
+                launches.setdefault(k, c)
+        if mapped < 0.9 * n:
+            raise AssertionError(f"[{label}] only {mapped} of {n} reads "
+                                 "mapped")
         for ln in lines:
             if len(ln.split("\t")) < 11:
                 raise AssertionError(f"malformed SAM line: {ln[:120]}")
         all_lines[label] = lines
     return all_lines, launches
+
+
+def chain_mask_phase(problems, opts, rec, launches) -> None:
+    """K3 on a driver path: copies of the CCS SDP-2 problems with
+    need_full=False through solve_problems on the card (the chain
+    bitmask round); best_chain and chain_vmax must equal the
+    need_full=True results the CCS run computed."""
+    import torch
+
+    from lra_tpu_torch.chain.driver import (ChainProblem, best_chain,
+                                            chain_vmax, solve_problems)
+    from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.ops.gapcost import from_options
+
+    full = [p for p in problems if p.V is not None and len(p.qS) > 1]
+    if not full:
+        raise AssertionError("no SDP-2 problem recorded for K3")
+    masked = [ChainProblem(p.qS, p.qE, p.tS, p.tE, p.score, p.lane1,
+                           p.lane2, p.order, p.tbase, need_full=False)
+              for p in full]
+    gp = from_options(opts)
+    _ext.reset_launches()
+    with rec:
+        solve_problems(masked, gp, True, DEV)
+    torch.cuda.synchronize()
+    n = _ext.LAUNCHES["chain_mask_from_scores"]
+    if n == 0:
+        raise AssertionError("chain_mask_from_scores was not launched on "
+                             "the need_full=False driver path")
+    launches["chain_mask_from_scores"] = n
+    for a, b in zip(full, masked):
+        if best_chain(a) != best_chain(b) or chain_vmax(a) != chain_vmax(b):
+            raise AssertionError("need_full=False chain != need_full=True "
+                                 "chain")
+    log(f"K3 driver path: {len(masked)} SDP-2 problems with "
+        f"need_full=False, {n} launches; best_chain and chain_vmax equal "
+        f"to the need_full=True results")
 
 
 def main_path_kernels(rec, launches) -> list:
@@ -455,6 +716,7 @@ def main_path_kernels(rec, launches) -> list:
 
     from lra_tpu_torch.ops import affine_kernel as ak
     from lra_tpu_torch.ops import affine_pallas as ap
+    from lra_tpu_torch.ops import one_gap as og
     from lra_tpu_torch.ops import sdp_blocked as sb
 
     plain = {"banded_global_traced_packed":
@@ -470,6 +732,7 @@ def main_path_kernels(rec, launches) -> list:
         if name not in rec.best:
             raise AssertionError(f"no main-path call of {name} recorded")
         _, args, kw = rec.best[name]
+        preps = 2
         if name == "chain_scores_blocked":
             fn = lambda: sb.chain_scores_blocked(*args, **kw)
             pfn = lambda: sb.chain_scores_blocked_plain(*args, **kw)
@@ -477,8 +740,28 @@ def main_path_kernels(rec, launches) -> list:
             torch.cuda.synchronize()
             err = max(exact(f"{name} (main-path input)", x, y)
                       for x, y in zip(got, ref))
-            bound, by = sdp_bound(args)
+            bnd, by = sdp_bound(args)
             shape = f"B={args[0].shape[0]} N={args[0].shape[1]}"
+        elif name == "chain_mask_from_scores":
+            fn = lambda: sb.chain_mask_from_scores(*args)
+            pfn = lambda: sb.chain_mask_from_scores_plain(*args)
+            got, ref = fn(), pfn()
+            torch.cuda.synchronize()
+            err = max(exact(f"{name} (main-path input)", x, y)
+                      for x, y in zip(got, ref))
+            bnd, by = mask_bound(args[0], got[1])
+            shape = f"B={args[0].shape[0]} N={args[0].shape[1]}"
+        elif name == "one_gap_traced":
+            K, D, L = args[7], args[8], args[12]
+            fn = lambda: og.one_gap_traced(*args)
+            pfn = lambda: og.one_gap_traced_plain(*args)
+            got, ref = fn(), pfn()
+            torch.cuda.synchronize()
+            err = max(exact(f"{name} (main-path input)", x, y)
+                      for x, y in zip(got, ref))
+            bnd, by = one_gap_bound(args[:7], K, D, L, got[0])
+            shape = f"B={args[0].shape[0]} K={K} D={D}"
+            preps = 1
         else:
             q, t, qlen, tlen, K = args[:5]
             kband = kw["kband"]
@@ -488,58 +771,62 @@ def main_path_kernels(rec, launches) -> list:
             got, ref = fn(), pfn()
             torch.cuda.synchronize()
             err = exact(f"{name} (main-path input)", got, ref)
-            bound, by = dp_bound(name, K, q, t, tlen, got)
+            bnd, by = dp_bound(name, K, q, t, tlen, got)
             shape = f"B={q.shape[0]} S={q.shape[1]} K={K}"
         ms = cuda_ms(fn, 10)
-        pms = cuda_ms(pfn, 2)
+        pms = cuda_ms(pfn, preps)
         log(f"main-path {name} [{shape}]: exact (max |err| {err}); "
             f"{ms:.4f} ms, plain "
-            f"{pms:.2f} ms, bound {bound:.5f} ms ({by})")
+            f"{pms:.2f} ms, bound {bnd:.5f} ms ({by})")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "bound_ms": bnd, "bound_by": by, "library_ms": None,
                      "shape": shape})
     return rows
 
 
-def cpu_parity(reads, genome, idx, opts, all_lines) -> None:
-    """The first 16 reads on device="cpu" (plain twins) and on "cuda":
-    SAM lines byte-equal to each other and to the full CUDA run's."""
-    from lra_tpu_torch.pipeline import align_reads
-
-    sub = reads[:16]
-    names = {n for n, _ in sub}
-    for label, use_pallas, _ in PATHS:
+def cpu_parity(genome, work, all_lines) -> None:
+    """The first reads (16 CCS, 4 ONT and CLR) on device="cpu" (plain
+    twins) and on "cuda": SAM lines byte-equal to each other and to the
+    full CUDA run's."""
+    for label, kind, use_pallas, _ in PATHS:
+        batches, idx, opts, gli = work[kind]
         opts.use_pallas = use_pallas
+        sub = batches[0][:16 if kind == "ccs" else 4]
+        names = {n for n, _ in sub}
         t0 = time.perf_counter()
-        _, cpu_lines = align_reads(sub, genome, idx, opts, device="cpu")
+        _, cpu_lines = align_all([sub], genome, idx, opts, gli, "cpu")
         t1 = time.perf_counter()
-        _, gpu_lines = align_reads(sub, genome, idx, opts, device="cuda")
+        _, gpu_lines = align_all([sub], genome, idx, opts, gli, DEV)
         full = [ln for ln in all_lines[label]
                 if ln.split("\t", 1)[0] in names]
         if cpu_lines != gpu_lines:
-            raise AssertionError(f"[{label}] SAM lines of 16 reads: "
+            raise AssertionError(f"[{label}] SAM lines of {len(sub)} reads: "
                                  "device='cpu' != device='cuda'")
-        if cpu_lines != full:
+        if kind == "ccs" and cpu_lines != full:
             raise AssertionError(f"[{label}] SAM lines of 16 reads: "
                                  "device='cpu' != the full CUDA run's")
-        log(f"cpu parity [{label}]: {len(cpu_lines)} SAM lines of 16 reads "
-            f"byte-equal (cpu run {t1 - t0:.1f} s)")
+        log(f"cpu parity [{label}]: {len(cpu_lines)} SAM lines of "
+            f"{len(sub)} reads byte-equal (cpu run {t1 - t0:.1f} s)")
 
 
-def profile_phase(reads, genome, idx, opts) -> None:
-    """Device time by kernel name over one CCS use_pallas=True run."""
+HAND = ("sdp_blocked_kernel", "chain_mask_kernel", "banded_global_kernel",
+        "banded_refine_kernel", "rowsync_kernel", "one_gap_kernel")
+
+
+def profile_phase(genome, work, label) -> None:
+    """Device time by kernel name over one run of a path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from lra_tpu_torch.pipeline import align_reads
-
-    opts.use_pallas = True
+    _, kind, use_pallas, _ = next(p for p in PATHS if p[0] == label)
+    batches, idx, opts, gli = work[kind]
+    opts.use_pallas = use_pallas
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        align_reads(reads, genome, idx, opts, device="cuda")
+        align_all(batches, genome, idx, opts, gli, DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -551,18 +838,19 @@ def profile_phase(reads, genome, idx, opts) -> None:
             rows.append((dt, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
-    log(f"profile [ccs use_pallas=True]: wall {wall * 1e3:.1f} ms, device "
-        f"kernels {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} % busy)")
-    hand = ("sdp_blocked_kernel", "banded_global_kernel",
-            "banded_refine_kernel", "rowsync_kernel")
-    mine = [r for r in rows if any(h in r[2] for h in hand)]
+    log(f"profile [{label}]: wall {wall * 1e3:.1f} ms for {len(batches)} "
+        f"batch(es), device kernels {busy:.1f} ms "
+        f"({100 * busy / (wall * 1e3):.1f} % busy)")
+    mine = [r for r in rows if any(h in r[2] for h in HAND)]
     for dt, n, key in mine:
         log(f"  hand kernel {dt / 1e3:10.3f} ms {n:6d}x {key[:60]}")
     rest = [r for r in rows if r not in mine]
-    log(f"  other device kernels (plain torch: K6, K3, glue, copies): "
+    log(f"  other device kernels (glue, copies, fills): "
         f"{sum(r[0] for r in rest) / 1e3:.1f} ms in "
-        f"{sum(r[1] for r in rest)} launches")
-    for dt, n, key in rest[:12]:
+        f"{sum(r[1] for r in rest)} launches"
+        + (" per CCS batch (PR 1, with K6 and K3 as plain torch: 107,947)"
+           if kind == "ccs" else ""))
+    for dt, n, key in rest[:8]:
         log(f"  {dt / 1e3:10.2f} ms {n:7d}x {key[:90]}")
 
 
@@ -577,7 +865,6 @@ def main() -> int:
 
     smi = smi_line()
     log(smi)
-    dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -592,17 +879,26 @@ def main() -> int:
                     log(f"  ptxas {n}: {ln.strip()[:150]}")
 
     t0 = time.perf_counter()
-    kernel_phase(dev)
+    kernel_phase(torch.device("cuda"))
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    reads, genome, idx, opts = make_workload()
-    log(f"e2e set-up (2 Mb genome, index, 256 reads of 8 kb): "
+    genome, ccs_rng = make_genome()
+    work = {k: make_workload(k, genome, ccs_rng) for k in SHAPES}
+    log(f"e2e set-up (2 Mb genome; CCS, ONT, CLR reads, indexes): "
         f"{time.perf_counter() - t0:.1f} s")
     rec = Recorder()
-    all_lines, launches = e2e_phase(dev, reads, genome, idx, opts, rec)
+    mixes: dict = {}
+    all_lines, launches = e2e_phase(genome, work, rec, mixes)
+    log(f"[{time.perf_counter() - T0:.0f} s] e2e paths done")
+    chain_mask_phase(mixes["ccs use_pallas=True"].sdp2, work["ccs"][2], rec,
+                     launches)
     rows = main_path_kernels(rec, launches)
-    cpu_parity(reads, genome, idx, opts, all_lines)
-    profile_phase(reads, genome, idx, opts)
+    log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
+    cpu_parity(genome, work, all_lines)
+    log(f"[{time.perf_counter() - T0:.0f} s] cpu parity done")
+    for label in ("ccs use_pallas=True", "ont", "clr"):
+        profile_phase(genome, work, label)
+    log(f"total {time.perf_counter() - T0:.0f} s")
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

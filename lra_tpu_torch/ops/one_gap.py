@@ -1,4 +1,4 @@
-"""Device one-long-gap banded aligner (K6; plain torch in this port).
+"""One-long-gap banded aligner (K6).
 
 Batched DP for the separated prefix/suffix band regime of the
 reference's ``AffineOneGapAlign`` (reference: AffineOneGapAlign.h:157,
@@ -7,11 +7,13 @@ matrix from (0,0), a k-banded suffix matrix anchored at (qLen,tLen), and
 ONE free arbitrarily-long gap joining them (a column-max closure when
 the query is longer, a row-max closure when the target is longer).
 
-Bit-identical to lra_tpu's jitted one_gap_traced and through it to the
-host oracle ``align.affine.affine_one_gap_align``
-(same integer scores, same tie order LEFT > DOWN > DIAG > GAPLEFT >
-GAPDOWN, same >=-latest / >-earliest closure argmax conventions, same
-border seeding) — enforced by tests/test_one_gap.py fuzzing.
+``one_gap_traced`` launches the CUDA kernel (csrc/one_gap.cu) for CUDA
+tensors and runs ``one_gap_traced_plain`` for CPU tensors.  Both are
+bit-identical to lra_tpu's jitted one_gap_traced and through it to the
+host oracle ``align.affine.affine_one_gap_align`` (same integer scores,
+same tie order LEFT > DOWN > DIAG > GAPLEFT > GAPDOWN, same
+>=-latest / >-earliest closure argmax conventions, same border seeding)
+— enforced by tests/test_one_gap.py fuzzing.
 
 Data layout per (K, D) bucket: lanes are band offsets.  Prefix lanes
 d = i - j + K (width 2K+1).  Suffix lanes e = i - j - (qlen - tlen) + K
@@ -29,8 +31,12 @@ never on the gap length: a 50kb SV gap costs the same as a 200bp one.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from . import _ext
 
 # op codes shared with align.affine
 DONE, LEFT, DOWN, DIAG, BORDER, GAPLEFT, GAPDOWN = range(7)
@@ -353,8 +359,7 @@ TAIL = lambda K, D: D + K + 4        # tail window width
 
 def one_gap_traced(q_head, t_head, q_tail, t_tail, qlen, tlen, kband,
                    K, D, m, mm, indel, L):
-    """Batched one-long-gap alignment with traceback (plain torch, run
-    on the tensors' device).
+    """Batched one-long-gap alignment with traceback.
 
     q_head/t_head: int32[B, D+K] (codes from position 0), q_tail/t_tail:
     int32[B, D+K+4] (tail[z] = seq[len - (D+K+4) + z]), qlen/tlen/kband:
@@ -363,11 +368,60 @@ def one_gap_traced(q_head, t_head, q_tail, t_tail, qlen, tlen, kband,
 
     Returns (ops int8[B, L] end-first with codes LEFT/DOWN/DIAG/
     GAPLEFT/GAPDOWN and -1 padding, jump_len int32[B], score f32[B])."""
+    if q_head.device.type == "cuda":
+        return _one_gap_traced_cuda(q_head, t_head, q_tail, t_tail, qlen,
+                                    tlen, kband, K, D, m, mm, indel, L)
+    return one_gap_traced_plain(q_head, t_head, q_tail, t_tail, qlen, tlen,
+                                kband, K, D, m, mm, indel, L)
+
+
+def one_gap_traced_plain(q_head, t_head, q_tail, t_tail, qlen, tlen, kband,
+                         K, D, m, mm, indel, L):
+    """Plain torch version (any device): python loops over the DP rows
+    and the traceback steps."""
     parr, lmax, lidx, up, upi = _prefix_pass(
         q_head, qlen, tlen, kband, K, D, m, mm, indel, t_head)
     sarr, score = _suffix_pass(q_tail, t_tail, qlen, tlen, kband, K, D, m,
                                mm, indel, lmax, up)
     ops, jump = _traceback(parr, sarr, qlen, tlen, kband, K, lidx, upi, L)
+    return ops, jump, score
+
+
+_ONE_GAP_ARGS = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+
+
+def _one_gap_traced_cuda(q_head, t_head, q_tail, t_tail, qlen, tlen, kband,
+                         K, D, m, mm, indel, L):
+    B = q_head.shape[0]
+    if 2 * K + 4 > 4096:
+        raise ValueError(f"one_gap_traced kernel: needs 2K+4 <= 4096 "
+                         f"(got K={K})")
+    HP, HS = HEAD(K, D), TAIL(K, D)
+    for name, t, w in (("q_head", q_head, HP), ("t_head", t_head, HP),
+                       ("q_tail", q_tail, HS), ("t_tail", t_tail, HS)):
+        _ext.check(name, t, torch.int32, (B, w))
+    for name, t in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
+        _ext.check(name, t, torch.int32, (B,))
+    dev = q_head.device
+    ops = torch.empty((B, L), dtype=torch.int8, device=dev)
+    jump = torch.empty(B, dtype=torch.int32, device=dev)
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return ops, jump, score
+    # scratch: arrow planes, lowerMax/idx per column, upperMax/idx per row
+    TP1, TS1, UP = D + K, D + K + 3, D + 3 * K + 4
+    parr = torch.empty((B, TP1, 2 * K + 1), dtype=torch.int8, device=dev)
+    sarr = torch.empty((B, TS1, 2 * K + 4), dtype=torch.int8, device=dev)
+    lmax = torch.empty((B, TP1), dtype=torch.float32, device=dev)
+    lidx = torch.empty((B, TP1), dtype=torch.int32, device=dev)
+    up = torch.empty((B, UP), dtype=torch.float32, device=dev)
+    upi = torch.empty((B, UP), dtype=torch.int32, device=dev)
+    p = _ext.ptr
+    _ext.launch("one_gap_traced", "one_gap", "lra_one_gap_traced",
+                _ONE_GAP_ARGS, p(q_head), p(t_head), p(q_tail), p(t_tail),
+                p(qlen), p(tlen), p(kband), p(parr), p(sarr), p(lmax),
+                p(lidx), p(up), p(upi), p(ops), p(jump), p(score), B, K, D,
+                int(m), int(mm), int(indel), L)
     return ops, jump, score
 
 

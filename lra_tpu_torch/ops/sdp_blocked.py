@@ -11,7 +11,8 @@ for CUDA tensors and runs ``chain_scores_blocked_plain`` for CPU
 tensors.  The two agree bit for bit: every value is an f32 sum of the
 same operands in the same order, the PWL piece is a multiply and an add
 each rounded on its own, maxima are order-free, and every argmax takes
-the first index.  ``chain_mask_from_scores`` is plain torch only.
+the first index.  ``chain_mask_from_scores`` dispatches the same way, to
+csrc/chain_mask.cu or to ``chain_mask_from_scores_plain``.
 """
 
 from __future__ import annotations
@@ -171,11 +172,40 @@ def _chain_scores_blocked_cuda(qS, qE, tS, tE, score, lane1, lane2, valid,
 
 
 def chain_mask_from_scores(V, bp, valid):
-    """Device-side single-best traceback (plain torch; K3): walk bp from
-    argmax(V) and return (vmax f32[B], maskbits int32[B, N//32]) — the
-    chain as a bitmask.  A backpointer always targets a strictly
-    earlier q-sorted row, so N steps cover any chain.  Requires
-    N % 32 == 0."""
+    """Device-side single-best traceback (K3): walk bp from argmax(V) and
+    return (vmax f32[B], maskbits int32[B, N//32]) — the chain as a
+    bitmask.  A backpointer always targets a strictly earlier q-sorted
+    row, so N steps cover any chain.  Requires N % 32 == 0."""
+    if V.device.type == "cuda":
+        return _chain_mask_from_scores_cuda(V, bp, valid)
+    return chain_mask_from_scores_plain(V, bp, valid)
+
+
+_MASK_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+
+
+def _chain_mask_from_scores_cuda(V, bp, valid):
+    B, N = V.shape
+    if N % 32 or N > 8192:
+        raise ValueError(f"chain_mask_from_scores kernel: needs N % 32 == 0 "
+                         f"and N <= 8192 (got N={N})")
+    _ext.check("V", V, torch.float32, (B, N))
+    _ext.check("bp", bp, torch.int32, (B, N))
+    _ext.check("valid", valid, torch.bool, (B, N))
+    vmax = torch.empty(B, dtype=torch.float32, device=V.device)
+    bits = torch.empty((B, N // 32), dtype=torch.int32, device=V.device)
+    if B == 0:
+        return vmax, bits
+    p = _ext.ptr
+    _ext.launch("chain_mask_from_scores", "chain_mask",
+                "lra_chain_mask_from_scores", _MASK_ARGS, p(V), p(bp),
+                p(valid), p(vmax), p(bits), B, N)
+    return vmax, bits
+
+
+def chain_mask_from_scores_plain(V, bp, valid):
+    """Plain torch version (any device): a python loop of N walk
+    steps."""
     B, N = V.shape
     dev = V.device
     Vm = torch.where(valid, V, torch.tensor(NEG, dtype=torch.float32,

@@ -1,6 +1,5 @@
-"""Alignment pipelines (this slice of the port: the high-accuracy CCS /
-CONTIG pipeline; the ONT/CLR pipeline, lra_tpu's pipeline/lowacc.py,
-comes in a later slice)."""
+"""Alignment pipelines: the high-accuracy CCS / CONTIG pipeline
+(highacc.py) and the low-accuracy ONT / CLR pipeline (lowacc.py)."""
 
 from __future__ import annotations
 
@@ -30,10 +29,6 @@ def align_reads(reads, genome: Genome, index: GlobalIndex, opts: Options,
 
     if use_device:
         device = resolve_device(device)
-    if opts.bypass_clustering:
-        raise NotImplementedError(
-            "the ONT/CLR pipeline (lra_tpu pipeline/lowacc.py) is not in "
-            "this port yet (ROADMAP.md, queue 1)")
 
     t_batch0 = _time.perf_counter()
     prepared = []
@@ -45,8 +40,13 @@ def align_reads(reads, genome: Genome, index: GlobalIndex, opts: Options,
             passthrough[name] = item[3]
         codes = s if isinstance(s, np.ndarray) else sequtils.encode(s)
         prepared.append((name, codes, qual))
-    states = map_batch(prepared, genome, index, opts, use_device,
-                       genome_li, timing, dots, device)
+    if opts.bypass_clustering:
+        from .lowacc import map_batch_lowacc
+        states = map_batch_lowacc(prepared, genome, index, opts, use_device,
+                                  genome_li, dots, timing, device)
+    else:
+        states = map_batch(prepared, genome, index, opts, use_device,
+                           genome_li, timing, dots, device)
     if opts.time_read and prepared:
         # batched execution has no per-read wall clock; RT:i reports the
         # amortized per-read share of the batch (reference: --timeRead,

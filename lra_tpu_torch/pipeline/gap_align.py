@@ -25,6 +25,8 @@ from ..ops.affine_kernel import (banded_global_np,
                                  traceback_refine, unpack_ops)
 from ..ops.affine_pallas import (banded_pallas_rowsync,
                                  blocks_from_rowsync, pallas_supported)
+from ..ops.one_gap import (blocks_from_one_gap_ops, one_gap_traced,
+                           pack_one_gap_bucket)
 from ..options import Options
 from ..utils import pow2_at_least as _pow2_at_least
 
@@ -252,7 +254,7 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
             device_jobs[key] = [(jobs[i], int(kb_v[i]))
                                 for i in grp.tolist()]
     # out-of-regime non-refine jobs = the one-long-gap regime
-    # (min + 2k < max): batched device kernel (ops/one_gap.py), bucketed
+    # (min + 2k < max): batched kernel K6 (ops/one_gap.py), bucketed
     # by (K, D=diag class) — shapes are gap-length independent because
     # only the head/tail windows of the long side feed the bands
     og_buckets: dict = {}
@@ -384,10 +386,9 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
                 opts.local_indel, kband)
             pending.append((K, items, qlen, tlen, arrows))
 
-    # one-long-gap buckets (plain torch on the device in this port)
+    # one-long-gap buckets: K6 (csrc/one_gap.cu on a CUDA device, its
+    # plain twin on the CPU)
     for (Kc, Dc), items in og_buckets.items():
-        from ..ops.one_gap import one_gap_traced, pack_one_gap_bucket
-
         B = 8
         while B < len(items):
             B *= 2
@@ -476,8 +477,6 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
                 job.blocks = blocks[b]
     for K, items, qlen, tlen, buf in pending:
         if K == "onegap":
-            from ..ops.one_gap import blocks_from_one_gap_ops
-
             _ops_u8, _jump_u8, B, L = buf
             plane = merged[off:off + B * L].reshape(B, L).view(np.int8)
             off += B * L

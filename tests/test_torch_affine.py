@@ -100,6 +100,41 @@ def test_one_gap_plain_matches_jax():
             jog.blocks_from_one_gap_ops(ops[b], int(jump[b]))
 
 
+@pytest.mark.parametrize("regime", ["query_longer", "target_longer"])
+def test_one_gap_plain_matches_jax_regime(regime):
+    """K6's twin in each closure regime alone: the query longer (the
+    lowerMax column closure, GAPLEFT) or the target longer (the upperMax
+    row closure, GAPDOWN)."""
+    import sys
+    import os
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_one_gap import _gen_case
+
+    rng = np.random.default_rng(23)
+    cases = []
+    for _ in range(24):
+        q, t, k = _gen_case(rng, 120)
+        if (len(q) > len(t)) != (regime == "query_longer"):
+            q, t = t, q
+        cases.append((q, t, k))
+    K = 16
+    D = pow2_at_least(max(min(len(q), len(t)) + 1 for q, t, _ in cases), 16)
+    kb = np.array([min(min(len(q), len(t)), k) for q, t, k in cases],
+                  np.int32)
+    packed = tog.pack_one_gap_bucket([c[0] for c in cases],
+                                     [c[1] for c in cases], K, D)
+    L = 2 * (D + K) + 8
+    ops, jump, score = [np.asarray(x) for x in jog.one_gap_traced(
+        *packed, kb, K, D, M, MM, IND, L)]
+    tops, tjump, tscore = [x.numpy() for x in tog.one_gap_traced(
+        *as_t(list(packed) + [kb]), K, D, M, MM, IND, L)]
+    np.testing.assert_array_equal(tops, ops)
+    np.testing.assert_array_equal(tjump, jump)
+    np.testing.assert_array_equal(tscore.view(np.int32), score.view(np.int32))
+    gap_op = jog.GAPLEFT if regime == "query_longer" else jog.GAPDOWN
+    assert all((ops[b] == gap_op).sum() == 1 for b in range(len(cases)))
+
+
 def rowsync_batch(rng, B, S, n_snp):
     t = rng.integers(0, 4, (B, S)).astype(np.int8)
     q = t.copy()

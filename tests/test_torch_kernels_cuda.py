@@ -14,6 +14,7 @@ import torch
 from lra_tpu_torch import preset
 from lra_tpu_torch.ops import affine_kernel as ak
 from lra_tpu_torch.ops import affine_pallas as ap
+from lra_tpu_torch.ops import one_gap as og
 from lra_tpu_torch.ops import sdp_blocked as sb
 from lra_tpu_torch.ops.gapcost import from_options
 
@@ -92,3 +93,79 @@ def test_banded_kernels_match_plain(cuda_device, kernel, B, S, K):
     ref = plain(q, t, ql, tl, K, M, MM, IND, kb)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def one_gap_batch(rng, B, K, D, query_longer, max_gap, dev):
+    """B one-gap problems of a (K, D) bucket plus one pad row (qlen 1,
+    tlen 4, kband 1) as gap_align adds: a short side of D/2..D-1 bases
+    with SNPs and a small indel, the long side its flanks around a random
+    gap of 2k+1..max_gap bases."""
+    qs, ts, kbs = [], [], []
+    for _ in range(B):
+        mn = int(rng.integers(max(1, D // 2), D))
+        k = int(min(rng.integers(1, K), mn))
+        gap = int(rng.integers(2 * k + 1, max(2 * k + 2, max_gap)))
+        flank = rng.integers(0, 4, mn).astype(np.int8)
+        longer = np.concatenate([flank[:mn // 2],
+                                 rng.integers(0, 4, gap).astype(np.int8),
+                                 flank[mn // 2:]])
+        short = flank.copy()
+        mut = rng.random(mn) < 0.05
+        short[mut] = rng.integers(0, 4, int(mut.sum()))
+        p = int(rng.integers(0, mn))
+        short = np.delete(short, p) if rng.random() < 0.5 and mn > 2 \
+            else np.insert(short, p, short[p])
+        short = short[:D - 1]
+        q, t = (longer, short) if query_longer else (short, longer)
+        qs.append(q)
+        ts.append(t)
+        kbs.append(min(k, len(short)))
+    qs.append(np.zeros(1, np.int8))
+    ts.append(np.zeros(4, np.int8))
+    kbs.append(1)
+    packed = og.pack_one_gap_bucket(qs, ts, K, D)
+    return [torch.from_numpy(a).to(dev)
+            for a in list(packed) + [np.asarray(kbs, np.int32)]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,D,query_longer,max_gap", [
+    (16, 16, 64, True, 400), (16, 16, 64, False, 400),
+    (8, 64, 512, True, 50000), (8, 64, 512, False, 50000),
+    (3, 1024, 1024, True, 5000), (3, 1024, 1024, False, 5000)])
+def test_one_gap_kernel_matches_plain(cuda_device, B, K, D, query_longer,
+                                      max_gap):
+    """K6 in both closure regimes, up to the 2052-lane bucket (K=1024)."""
+    args = one_gap_batch(np.random.default_rng(K + D + query_longer), B, K,
+                         D, query_longer, max_gap, cuda_device)
+    L = 2 * (D + K) + 8
+    got = og.one_gap_traced(*args, K, D, M, MM, IND, L)
+    ref = og.one_gap_traced_plain(*args, K, D, M, MM, IND, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(got[2].view(torch.int32), ref[2].view(torch.int32))
+    gap_op = og.GAPLEFT if query_longer else og.GAPDOWN
+    assert int((ref[0][:B] == gap_op).sum()) == B
+
+
+def chain_mask_batch(rng, B, N, dev):
+    """Scores with many ties (small integers), backpointers to earlier
+    rows or -1, and a valid prefix per problem."""
+    V = rng.integers(-20, 60, (B, N)).astype(np.float32)
+    bp = np.array([[int(rng.integers(-1, i)) if i else -1 for i in range(N)]
+                   for _ in range(B)], np.int32)
+    valid = np.arange(N)[None, :] < rng.integers(1, N + 1, B)[:, None]
+    V[0, :] = -5.0                       # no positive score: empty chain
+    return [torch.from_numpy(a).to(dev) for a in (V, bp, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(8, 64), (4, 4096)])
+def test_chain_mask_kernel_matches_plain(cuda_device, B, N):
+    args = chain_mask_batch(np.random.default_rng(N), B, N, cuda_device)
+    got = sb.chain_mask_from_scores(*args)
+    ref = sb.chain_mask_from_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(got[1], ref[1])
+    assert bool((ref[1][1:] != 0).any())
