@@ -12,19 +12,29 @@ failure.  Phases:
 2. kernels: each hand-written kernel against its plain torch twin on
    seeded inputs at a spread of shapes — exact equality — with median
    CUDA-event times (K6 at (K, D) buckets up to 2052 lanes in both
-   closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192);
-3. end to end, on one 2 Mb random genome (numpy seed 0), through
-   align_reads(..., device="cuda"), each path a recorded warm-up (the
-   largest input each kernel got, the job mix) and then a timed run with
-   the launch counts reset just before and read just after, device
+   closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
+   at N = 8192..40960 with W = 4096 and 16384 and on an instance where
+   the far term wins);
+3. end to end, through align_reads(..., device="cuda"), each path run
+   with the launch counts reset just before and read just after, device
    stage times from CUDA events; a path fails if one of its kernels was
    not launched:
-   - CCS with use_pallas=True and in the default configuration
-     (bench.py's shapes: 256 reads of 8 kb, snp 0.003, ins/del 0.001,
-     numpy seed 0);
-   - ONT (384 reads of 12 kb, snp 0.03, ins/del 0.01, seed 1, one
-     batch) and CLR (256 reads of 10 kb, snp 0.072, ins/del 0.024,
-     seed 2, batches of 128): bench.py's shapes and error split;
+   - on one 2 Mb random genome (numpy seed 0), each path a recorded
+     warm-up (the largest input each kernel got, the job mix) and then a
+     timed run: CCS with use_pallas=True and in the default
+     configuration (bench.py's shapes: 256 reads of 8 kb, snp 0.003,
+     ins/del 0.001, numpy seed 0); ONT (384 reads of 12 kb, snp 0.03,
+     ins/del 0.01, seed 1, one batch) and CLR (256 reads of 10 kb, snp
+     0.072, ins/del 0.024, seed 2, batches of 128): bench.py's shapes and
+     error split;
+   - CONTIG, each path one recorded, counted and timed run: (a) bench.py's
+     shape, 8 contigs of 500 kb with a 5 kb DEL and a 2 kb INS (numpy seed
+     3) on the 2 Mb genome; (b) the 2.5 Mb draft contig of
+     tests/test_golden.py (0.4 % one-base indels, 0.1 % SNPs, a 5 kb DEL,
+     a 2 kb INS; seed 5, 5.5 Mb genome), whose SDP-2 problem exceeds 8192
+     fragments and runs on K7; (c) a 7 Mb draft contig of the same recipe
+     (seed 5, 10 Mb genome), whose SDP-2 problem exceeds SHARD_N = 32768
+     fragments and is solved in q-range shard rounds on K7;
 4. K3 on a driver path: copies of the CCS batch's SDP-2 problems with
    need_full=False through solve_problems; best_chain and chain_vmax
    must equal the need_full=True results;
@@ -32,9 +42,11 @@ failure.  Phases:
    again (exact), timed, beside its bound;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
    device="cuda": the first 16 CCS reads in both configurations, the
-   first 4 ONT and CLR reads;
-7. one more run each of CCS use_pallas=True, ONT and CLR under
-   torch.profiler: the device's busy share and the device time and
+   first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
+   genome with the port's buckets cut to (64,) and SHARD_N to 2048 for
+   that call, so that K7 and the shard rounds lie on the compared path;
+7. one more run each of CCS use_pallas=True, ONT, CLR and CONTIG (b)
+   under torch.profiler: the device's busy share and the device time and
    launches of the hand kernels against all other kernels.
 
 The line before the last is the kernels JSON object; the last line is
@@ -87,6 +99,8 @@ KERNELS = {
                        "lra_tpu/ops/one_gap.py:434"),
     "banded_pallas_rowsync": ("lra_tpu_torch/csrc/rowsync.cu",
                               "lra_tpu/ops/affine_pallas.py:225"),
+    "chain_scores_windowed": ("lra_tpu_torch/csrc/sdp_windowed.cu",
+                              "lra_tpu/ops/sdp_windowed.py:111"),
 }
 M, MM, IND = 4, -3, -4      # CCS local_match / local_mismatch / local_indel
 DEV = "cuda"                # the device every path runs on
@@ -227,6 +241,22 @@ def sdp_inputs(rng, B, N, dev, nvalid=None):
     return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs]
 
 
+def windowed_inputs(rng, sizes, N, dev, repeat_dense=False):
+    """K7's 17 arguments at the driver's padding, [B = len(sizes), N], of
+    contig-like problems or of the repeat-dense FAR-sentinel instance
+    (lra_tpu_torch.sim.contig_chain_arrays)."""
+    import torch
+
+    from lra_tpu_torch.chain import driver
+    from lra_tpu_torch.sim import contig_chain_arrays
+
+    plist = [driver.ChainProblem(*contig_chain_arrays(rng, n, repeat_dense))
+             for n in sizes]
+    arrays = driver.pad_problems(plist, len(plist), N) + \
+        driver.pad_far_schedules(plist, len(plist), N)
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
 # ------------------------------------------------------------ bounds ---
 
 def bound(nbytes, ops) -> tuple:
@@ -274,6 +304,35 @@ def sdp_bound(args) -> tuple:
     return bound(nbytes, pairs * OPS_PER_PAIR)
 
 
+def windowed_bound(args, W) -> tuple:
+    """K7 on this data: per block of 64 rows, its valid rows against the
+    valid rows of its near window [b0 - W, b0) (the kernel skips the
+    front pad and invalid rows) and the in-block triangle, both at
+    OPS_PER_PAIR; the 6 squarings of the 64 x 64 closure (an add and a max
+    per term); the two prefix-max scans over N per refresh round.  Each
+    input read once, V/bp/lane written once."""
+    import torch
+
+    from lra_tpu_torch.ops.sdp_windowed import _refresh_blocks
+
+    valid = args[7]
+    B, N = valid.shape
+    L = 64
+    per_block = valid.reshape(B, N // L, L).sum(2).double()
+    cum = torch.cat([torch.zeros(B, 1, dtype=torch.float64,
+                                 device=valid.device),
+                     valid.double().cumsum(1)], 1)
+    b0 = torch.arange(0, N, L, device=valid.device)
+    window = cum[:, b0] - cum[:, (b0 - W).clamp(min=0)]
+    pairs = float((per_block * window + per_block * (per_block - 1) / 2)
+                  .sum())
+    nb = N // L
+    ops = pairs * OPS_PER_PAIR + B * nb * 6 * L ** 3 * 2 + \
+        B * (nb // _refresh_blocks(L, W, N)) * 2 * N * 2
+    nbytes = B * N * (10 * 4 + 4 + 5 + 3 * 4) + B * nb * 4
+    return bound(nbytes, ops)
+
+
 def mask_bound(V, bits) -> tuple:
     """K3: V and valid read once, one bp read per chain row the walk
     visits, vmax and the bit words written once."""
@@ -293,6 +352,7 @@ def kernel_phase(dev) -> None:
     from lra_tpu_torch.ops import affine_pallas as ap
     from lra_tpu_torch.ops import one_gap as og
     from lra_tpu_torch.ops import sdp_blocked as sb
+    from lra_tpu_torch.ops import sdp_windowed as sw
     from lra_tpu_torch.ops.gapcost import from_options
 
     rng = np.random.default_rng(0)
@@ -325,6 +385,30 @@ def kernel_phase(dev) -> None:
         ms = cuda_ms(lambda: sb.chain_mask_from_scores(*args), 5)
         log(f"kernel chain_mask_from_scores B=16 N={NN}: exact; "
             f"{ms:.4f} ms (plain {pms:.1f} ms)")
+    # K7: driver-padded contig-like problems, and one where the far term
+    # wins (FAR1/FAR2 sentinels)
+    ckey = from_options(preset("contig")).static_key()
+    for sizes, N, W, dense in (((8000, 3000), 8192, 4096, False),
+                               ((16000,), 16384, 16384, False),
+                               ((40000,), 40960, 4096, False),
+                               ((0,), 1664, 64, True)):
+        a = windowed_inputs(rng, sizes, N, dev, dense)
+        got = sw.chain_scores_windowed(*a, ckey, W=W)
+        torch.cuda.synchronize()
+        ref, pms = timed(lambda: sw.chain_scores_windowed_plain(*a, ckey,
+                                                                W=W))
+        for nm, x, y in zip(("V", "bp", "lane"), got, ref):
+            exact(f"chain_scores_windowed N={N} W={W} {nm}", x, y)
+        far = int((ref[1] < -1).sum())
+        if dense and not far:
+            raise AssertionError("chain_scores_windowed: the far term won "
+                                 "nowhere on the repeat-dense instance")
+        ms = cuda_ms(lambda: sw.chain_scores_windowed(*a, ckey, W=W), 3)
+        bnd, by = windowed_bound(a, W)
+        log(f"kernel chain_scores_windowed B={len(sizes)} N={N} W={W} "
+            f"({'repeat-dense, ' if dense else ''}{far} FAR sentinels): "
+            f"exact; {ms:.3f} ms (plain {pms:.1f} ms, bound {bnd:.4f} ms, "
+            f"{by})")
     for K in (30, 128, 512):
         for S in (256, 2048):
             a = banded_inputs(rng, 8, S, K, dev)
@@ -415,7 +499,8 @@ class Recorder:
              ("lra_tpu_torch.pipeline.gap_align", "banded_pallas_rowsync"),
              ("lra_tpu_torch.pipeline.gap_align", "one_gap_traced"),
              ("lra_tpu_torch.chain.driver", "chain_scores_blocked"),
-             ("lra_tpu_torch.chain.driver", "chain_mask_from_scores"))
+             ("lra_tpu_torch.chain.driver", "chain_mask_from_scores"),
+             ("lra_tpu_torch.chain.driver", "chain_scores_windowed"))
 
     def __init__(self):
         self.best: dict = {}
@@ -438,16 +523,18 @@ class Recorder:
         return False
 
     @staticmethod
-    def work(name, args) -> int:
+    def work(name, args, kw) -> int:
         if name == "one_gap_traced":        # B x (D + K) x K
             return args[0].numel() * args[7]
+        if name == "chain_scores_windowed":     # B x N x W
+            return args[0].numel() * kw["W"]
         if name in ("chain_scores_blocked", "chain_mask_from_scores"):
             return args[0].numel()
         return args[0].numel() * args[4]    # banded: B x S x K
 
     def _wrap(self, name, orig):
         def rec(*args, **kw):
-            work = self.work(name, args)
+            work = self.work(name, args, kw)
             if work > self.best.get(name, (-1,))[0]:
                 self.best[name] = (work, [x.clone() if hasattr(x, "clone")
                                           else x for x in args],
@@ -468,12 +555,16 @@ class JobMix:
              ("lra_tpu_torch.pipeline.big_gap", "resolve_big_gaps"),
              ("lra_tpu_torch.pipeline.highacc", "solve_gap_jobs"),
              ("lra_tpu_torch.pipeline.gap_align", "solve_gap_jobs"),
-             ("lra_tpu_torch.pipeline.gap_align", "one_gap_traced"))
+             ("lra_tpu_torch.pipeline.gap_align", "one_gap_traced"),
+             ("lra_tpu_torch.chain.driver", "_shard_problem"),
+             ("lra_tpu_torch.chain.driver", "_solve_batch"))
 
     def __init__(self):
         self.rounds: list = []
         self.one_gap: dict = {}
         self.sdp2: list = []
+        self.shards: list = []      # (fragments, [child fragments])
+        self.windowed: list = []    # (fragments, W) of the K7 problems
         self.n_sdp = 0
         self.saved = []
 
@@ -481,6 +572,7 @@ class JobMix:
         import importlib
 
         self.rounds, self.one_gap, self.sdp2 = [], {}, []
+        self.shards, self.windowed = [], []
         self.n_sdp = 0
         self.saved = []
         for mod_name, fn_name in self.SITES:
@@ -503,6 +595,22 @@ class JobMix:
                 self.one_gap[key] = (n + 1, b + args[0].shape[0])
                 return orig(*args, **kw)
             return og
+        if fn_name == "_shard_problem":
+            def shard(p, *args, **kw):
+                out = orig(p, *args, **kw)
+                self.shards.append((len(p.qS), [len(c[0].qS) for c in out]))
+                return out
+            return shard
+        if fn_name == "_solve_batch":
+            def solve(problems, *args, **kw):
+                from lra_tpu_torch.chain import driver
+
+                out = orig(problems, *args, **kw)
+                top = driver._BUCKETS[-1]       # past it: the windowed K7
+                self.windowed += [(len(p.qS), p.win_W) for p in problems
+                                  if len(p.qS) > top]
+                return out
+            return solve
 
         def tally(items, *args, **kw):
             if fn_name == "solve_problems":     # per batch SDP-1, SDP-2
@@ -533,13 +641,22 @@ class JobMix:
         og = ", ".join(f"(Kc={k}, Dc={d}): {n} launches, {b} problems"
                        for (k, d), (n, b) in sorted(self.one_gap.items()))
         out.append(f"K6 buckets {og or 'none'}")
+        for n, kids in self.shards:
+            out.append(f"shards: a problem of {n} fragments in {len(kids)} "
+                       f"rounds, children of {kids} fragments")
+        if self.windowed:
+            out.append("windowed (K7) problems (fragments, W): "
+                       + ", ".join(f"({n}, {w})" for n, w in self.windowed))
         return out
 
 
-# The paths: label, preset, use_pallas, and the kernels each run must
+# The paths: label, workload, use_pallas, and the kernels each run must
 # launch.  CCS in its two configurations: use_pallas=True (the narrow
 # band tier on the row-sync kernel) and the default (that tier on
-# banded_global_traced_packed); then ONT and CLR (the lowacc pipeline).
+# banded_global_traced_packed); then ONT and CLR (the lowacc pipeline);
+# then CONTIG (highacc) at bench.py's shape, which chains a handful of
+# fragments per problem, and two draft contigs whose SDP-2 problem
+# reaches K7, the second one through the q-range shards.
 PATHS = (
     ("ccs use_pallas=True", "ccs", True,
      ("chain_scores_blocked", "banded_refine_traced_packed",
@@ -549,12 +666,21 @@ PATHS = (
       "banded_global_traced_packed", "one_gap_traced")),
     ("ont", "ont", False, ("chain_scores_blocked", "one_gap_traced")),
     ("clr", "clr", False, ("chain_scores_blocked", "one_gap_traced")),
+    ("contig bench", "contig_bench", False, ("chain_scores_blocked",)),
+    ("contig 2.5 Mb", "contig_draft", False, ("chain_scores_windowed",)),
+    ("contig 7 Mb", "contig_shard", False, ("chain_scores_windowed",)),
 )
 # bench.py's shapes and error split (snp 60 %, ins 20 %, del 20 % of the
 # error rate): reads, read length, error, numpy seed, batch size
 SHAPES = {"ccs": (256, 8000, None, 0, 256),
           "ont": (384, 12000, 0.05, 1, 384),
           "clr": (256, 10000, 0.12, 2, 128)}
+# bench.py's CONTIG shape (bench.py:254-255): contigs, span, DEL, INS,
+# numpy seed
+CONTIG_BENCH = (8, 500_000, 5000, 2000, 3)
+# draft contigs (tests/test_golden.py's recipe, lra_tpu_torch.sim.
+# draft_contig): contig length
+DRAFTS = {"contig_draft": 2_500_000, "contig_shard": 7_000_000}
 
 
 def make_genome(genome_len=2_000_000):
@@ -567,33 +693,73 @@ def make_genome(genome_len=2_000_000):
     return Genome.from_seqs([("chr1", random_genome(rng, genome_len))]), rng
 
 
+def sim_contigs(rng, genome, n, span, dele, ins):
+    """bench.py's assembly-contig workload (bench.py:115-133): `span`-long
+    genome slices, each with one DEL of `dele` bases and one INS of `ins`
+    random bases."""
+    contigs = []
+    starts = genome.starts()
+    for i in range(n):
+        ci = int(rng.integers(0, genome.nseq))
+        lo, hi = int(starts[ci]), int(genome.ends[ci])
+        s = lo + int(rng.integers(0, hi - lo - span - dele - 1))
+        seq = genome.codes[s:s + span + dele].copy()
+        dpos = span // 3 + int(rng.integers(0, span // 4))
+        seq = np.concatenate([seq[:dpos], seq[dpos + dele:]])
+        ipos = 2 * span // 3 + int(rng.integers(0, span // 5))
+        insert = rng.integers(0, 4, ins).astype(np.uint8)
+        seq = np.concatenate([seq[:ipos], insert, seq[ipos:]])
+        contigs.append((f"ctg{i}", seq))
+    return contigs
+
+
 def make_workload(kind, genome, ccs_rng):
-    """(batches, index, opts, genome local index) of one preset."""
+    """(genome, batches, index, opts, genome local index) of one
+    workload."""
     from lra_tpu_torch import preset
     from lra_tpu_torch.index.global_index import build_global_index
     from lra_tpu_torch.index.local_index import build_genome_local_index
-    from lra_tpu_torch.sim import sample_read
+    from lra_tpu_torch.io.genome import Genome
+    from lra_tpu_torch.sim import draft_contig, random_genome, sample_read
 
-    n, length, err, seed, batch = SHAPES[kind]
-    opts = preset(kind)
-    idx = build_global_index(genome, opts)
-    if kind == "ccs":
-        rng = ccs_rng
-        snp, ind = 0.003, 0.001
+    if kind in DRAFTS:
+        # the draft contig on its own genome of size + 3 Mb, numpy seed 5
+        size = DRAFTS[kind]
+        rng = np.random.default_rng(5)
+        codes = random_genome(rng, size + 3_000_000)
+        ctg = draft_contig(rng, codes, 1_000_000, size)
+        genome = Genome.from_seqs([("chr1", codes)])
+        opts = preset("contig")
+        return (genome, [[("ctg0", ctg)]], build_global_index(genome, opts),
+                opts, None)
+    if kind == "contig_bench":
+        n, span, dele, ins, seed = CONTIG_BENCH
+        opts = preset("contig")
+        reads = sim_contigs(np.random.default_rng(seed), genome, n, span,
+                            dele, ins)
+        batches = [reads]
     else:
-        rng = np.random.default_rng(seed)
-        snp, ind = err * 0.6, err * 0.2
-    reads = []
-    for i in range(n):
-        r = sample_read(rng, genome.codes, length, snp=snp, ins=ind,
-                        dele=ind)
-        reads.append((f"r{i}", r.codes))
+        n, length, err, seed, batch = SHAPES[kind]
+        opts = preset(kind)
+        if kind == "ccs":
+            rng = ccs_rng
+            snp, ind = 0.003, 0.001
+        else:
+            rng = np.random.default_rng(seed)
+            snp, ind = err * 0.6, err * 0.2
+        reads = []
+        for i in range(n):
+            r = sample_read(rng, genome.codes, length, snp=snp, ins=ind,
+                            dele=ind)
+            reads.append((f"r{i}", r.codes))
+        batches = [reads[i:i + batch] for i in range(0, n, batch)]
+    idx = build_global_index(genome, opts)
     gli = None
     if kind != "ccs":
         gli = build_genome_local_index(
             genome, k=min(opts.local_k, 10), w=opts.local_w,
             window=opts.local_index_window, max_freq=opts.local_max_freq)
-    return [reads[i:i + batch] for i in range(0, n, batch)], idx, opts, gli
+    return genome, batches, idx, opts, gli
 
 
 def align_all(batches, genome, idx, opts, gli, device, timing=None):
@@ -608,11 +774,32 @@ def align_all(batches, genome, idx, opts, gli, device, timing=None):
     return states, lines
 
 
-def e2e_phase(genome, work, rec, mixes) -> tuple:
+def check_contig(label, kind, mix, counts) -> None:
+    """CONTIG (b) and (c): a chaining problem past 8192 fragments ran on
+    K7; (c): past SHARD_N, in shard rounds whose children reached K7."""
+    from lra_tpu_torch.chain import driver
+
+    if kind not in DRAFTS:
+        return
+    if not mix.windowed:
+        raise AssertionError(f"[{label}] no chaining problem exceeded 8192 "
+                             "fragments")
+    if kind == "contig_shard":
+        big = [(n, kids) for n, kids in mix.shards if n > driver.SHARD_N]
+        if not big or len(big[0][1]) < 2:
+            raise AssertionError(f"[{label}] no problem past SHARD_N = "
+                                 f"{driver.SHARD_N} was sharded")
+        kids = [k for _, ks in big for k in ks]
+        if not all(k > driver._BUCKETS[-1] for k in kids) or \
+                counts["chain_scores_windowed"] < len(kids):
+            raise AssertionError(f"[{label}] shard children {kids} did not "
+                                 "all reach K7")
+
+
+def e2e_phase(work, rec, mixes) -> tuple:
     """Drive each path: a recorded warm-up, then a timed run with the
-    launch counts reset just before and read just after.  Returns
-    ({path: SAM lines}, {kernel: launches on the first path that
-    launched it})."""
+    launch counts reset just before and read just after.  Returns ({path:
+    SAM lines}, {kernel: launches on the first path that launched it})."""
     import torch
 
     from lra_tpu_torch.ops import _ext
@@ -620,18 +807,17 @@ def e2e_phase(genome, work, rec, mixes) -> tuple:
 
     all_lines, launches = {}, {}
     for label, kind, use_pallas, needed in PATHS:
-        batches, idx, opts, gli = work[kind]
+        genome, batches, idx, opts, gli = work[kind]
         opts.use_pallas = use_pallas
         n = sum(len(b) for b in batches)
-        t0 = time.perf_counter()
+        bases = sum(len(c) for b in batches for _, c in b)
         mix = JobMix()
+        t0 = time.perf_counter()
         with rec, mix:
             align_all(batches, genome, idx, opts, gli, DEV)
         torch.cuda.synchronize()
-        mixes[label] = mix
         log(f"e2e [{label}] warm-up: {time.perf_counter() - t0:.2f} s")
-        for ln in mix.lines():
-            log(f"  job mix {ln}")
+        mixes[label] = mix
 
         stages: dict = {}
         _ext.reset_launches()
@@ -648,10 +834,12 @@ def e2e_phase(genome, work, rec, mixes) -> tuple:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = dict(_ext.LAUNCHES)
+        for ln in mix.lines():
+            log(f"  job mix {ln}")
         mapped = sum(1 for s in states if not s.unaligned)
-        log(f"e2e [{label}]: {n / dt:.2f} reads/s ({dt:.3f} s for {n} "
-            f"reads in {len(batches)} batch(es)), mapped {mapped}/{n}, "
-            f"{len(lines)} SAM lines")
+        log(f"e2e [{label}]: {n / dt:.2f} reads/s, {bases / dt:.0f} bases/s "
+            f"({dt:.3f} s for {n} reads of {bases} bases in {len(batches)} "
+            f"batch(es)), mapped {mapped}/{n}, {len(lines)} SAM lines")
         for stage, ms in stages.items():
             log(f"  stage {stage:28s} {ms:10.2f} ms")
         log(f"  launches {json.dumps(counts)}")
@@ -659,6 +847,7 @@ def e2e_phase(genome, work, rec, mixes) -> tuple:
             if counts[k] == 0:
                 raise AssertionError(f"[{label}] kernel {k} was not "
                                      "launched on the main path")
+        check_contig(label, kind, mix, counts)
         for k, c in counts.items():
             if c:
                 launches.setdefault(k, c)
@@ -718,6 +907,7 @@ def main_path_kernels(rec, launches) -> list:
     from lra_tpu_torch.ops import affine_pallas as ap
     from lra_tpu_torch.ops import one_gap as og
     from lra_tpu_torch.ops import sdp_blocked as sb
+    from lra_tpu_torch.ops import sdp_windowed as sw
 
     plain = {"banded_global_traced_packed":
              ak.banded_global_traced_packed_plain,
@@ -751,6 +941,17 @@ def main_path_kernels(rec, launches) -> list:
                       for x, y in zip(got, ref))
             bnd, by = mask_bound(args[0], got[1])
             shape = f"B={args[0].shape[0]} N={args[0].shape[1]}"
+        elif name == "chain_scores_windowed":
+            fn = lambda: sw.chain_scores_windowed(*args, **kw)
+            pfn = lambda: sw.chain_scores_windowed_plain(*args, **kw)
+            got, ref = fn(), pfn()
+            torch.cuda.synchronize()
+            err = max(exact(f"{name} (main-path input)", x, y)
+                      for x, y in zip(got, ref))
+            bnd, by = windowed_bound(args, kw["W"])
+            shape = (f"B={args[0].shape[0]} N={args[0].shape[1]} "
+                     f"W={kw['W']}")
+            preps = 1
         elif name == "one_gap_traced":
             K, D, L = args[7], args[8], args[12]
             fn = lambda: og.one_gap_traced(*args)
@@ -786,12 +987,14 @@ def main_path_kernels(rec, launches) -> list:
     return rows
 
 
-def cpu_parity(genome, work, all_lines) -> None:
+def cpu_parity(work, all_lines) -> None:
     """The first reads (16 CCS, 4 ONT and CLR) on device="cpu" (plain
     twins) and on "cuda": SAM lines byte-equal to each other and to the
     full CUDA run's."""
     for label, kind, use_pallas, _ in PATHS:
-        batches, idx, opts, gli = work[kind]
+        if kind not in SHAPES:
+            continue
+        genome, batches, idx, opts, gli = work[kind]
         opts.use_pallas = use_pallas
         sub = batches[0][:16 if kind == "ccs" else 4]
         names = {n for n, _ in sub}
@@ -811,17 +1014,62 @@ def cpu_parity(genome, work, all_lines) -> None:
             f"{len(sub)} reads byte-equal (cpu run {t1 - t0:.1f} s)")
 
 
+def contig_parity(work) -> None:
+    """A 500 kb draft contig (sim.draft_contig, numpy seed 3, from position
+    700,000 of the 2 Mb genome) on device="cpu" and "cuda" with the port's
+    buckets cut to (64,) and SHARD_N to 2048 for these two runs only, so
+    that SDP-2's ~2,900 fragments are solved in shard rounds on K7 (its
+    plain twin on the CPU): SAM lines byte-equal."""
+    import torch
+
+    from lra_tpu_torch.chain import driver
+    from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.sim import draft_contig
+
+    genome, _, idx, opts, gli = work["contig_bench"]
+    ctg = [("draft500k", draft_contig(np.random.default_rng(3), genome.codes,
+                                      700_000, 500_000))]
+    saved = driver._BUCKETS, driver.SHARD_N
+    driver._BUCKETS, driver.SHARD_N = (64,), 2048
+    try:
+        mix = JobMix()
+        t0 = time.perf_counter()
+        with mix:
+            _, cpu_lines = align_all([ctg], genome, idx, opts, gli, "cpu")
+        t1 = time.perf_counter()
+        _ext.reset_launches()
+        _, gpu_lines = align_all([ctg], genome, idx, opts, gli, DEV)
+        torch.cuda.synchronize()
+        k7 = _ext.LAUNCHES["chain_scores_windowed"]
+    finally:
+        driver._BUCKETS, driver.SHARD_N = saved
+    kids = [k for _, ks in mix.shards for k in ks]
+    if len(kids) < 2 or not mix.windowed or not k7:
+        raise AssertionError(f"cpu parity [contig]: shards {mix.shards}, "
+                             f"windowed problems {mix.windowed}, K7 "
+                             f"launches {k7}: K7 and the shards are not "
+                             "on the compared path")
+    if cpu_lines != gpu_lines:
+        raise AssertionError("cpu parity [contig]: SAM lines of the 500 kb "
+                             "draft contig: device='cpu' != device='cuda'")
+    log(f"cpu parity [contig, buckets (64,), SHARD_N 2048]: "
+        f"{len(cpu_lines)} SAM lines byte-equal; shards {mix.shards}, "
+        f"windowed problems (fragments, W) {mix.windowed}, K7 launches on "
+        f"the cuda run {k7} (cpu run {t1 - t0:.1f} s)")
+
+
 HAND = ("sdp_blocked_kernel", "chain_mask_kernel", "banded_global_kernel",
-        "banded_refine_kernel", "rowsync_kernel", "one_gap_kernel")
+        "banded_refine_kernel", "rowsync_kernel", "one_gap_kernel",
+        "sdp_windowed_kernel")
 
 
-def profile_phase(genome, work, label) -> None:
+def profile_phase(work, label) -> None:
     """Device time by kernel name over one run of a path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     _, kind, use_pallas, _ = next(p for p in PATHS if p[0] == label)
-    batches, idx, opts, gli = work[kind]
+    genome, batches, idx, opts, gli = work[kind]
     opts.use_pallas = use_pallas
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -883,21 +1131,24 @@ def main() -> int:
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     genome, ccs_rng = make_genome()
-    work = {k: make_workload(k, genome, ccs_rng) for k in SHAPES}
-    log(f"e2e set-up (2 Mb genome; CCS, ONT, CLR reads, indexes): "
+    work = {k: make_workload(k, genome, ccs_rng)
+            for k in (*SHAPES, "contig_bench", *DRAFTS)}
+    log(f"e2e set-up (2 Mb genome; CCS, ONT, CLR reads, bench contigs; "
+        f"2.5 and 7 Mb draft contigs on 5.5 and 10 Mb genomes; indexes): "
         f"{time.perf_counter() - t0:.1f} s")
     rec = Recorder()
     mixes: dict = {}
-    all_lines, launches = e2e_phase(genome, work, rec, mixes)
+    all_lines, launches = e2e_phase(work, rec, mixes)
     log(f"[{time.perf_counter() - T0:.0f} s] e2e paths done")
-    chain_mask_phase(mixes["ccs use_pallas=True"].sdp2, work["ccs"][2], rec,
+    chain_mask_phase(mixes["ccs use_pallas=True"].sdp2, work["ccs"][3], rec,
                      launches)
     rows = main_path_kernels(rec, launches)
     log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
-    cpu_parity(genome, work, all_lines)
+    cpu_parity(work, all_lines)
+    contig_parity(work)
     log(f"[{time.perf_counter() - T0:.0f} s] cpu parity done")
-    for label in ("ccs use_pallas=True", "ont", "clr"):
-        profile_phase(genome, work, label)
+    for label in ("ccs use_pallas=True", "ont", "clr", "contig 2.5 Mb"):
+        profile_phase(work, label)
     log(f"total {time.perf_counter() - T0:.0f} s")
     log(smi)
     print(json.dumps({"kernels": rows}))

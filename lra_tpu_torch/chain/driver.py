@@ -15,11 +15,13 @@ multi-chain traceback:
   single best traceback.
 
 Batching: problems are padded to bucket sizes (64..8192 fragments) and
-dispatched in one kernel launch per bucket (ops/sdp_blocked.py); all
+dispatched in one kernel launch per bucket (ops/sdp_blocked.py); larger
+problems (the CONTIG preset at scale) go to the windowed kernel
+(ops/sdp_windowed.py), bucketed by padded size and near-window W; all
 buckets' results come back in one device-to-host copy.  The host path
-(use_device=False) runs the numpy oracle.  Problems beyond 8192
-fragments (lra_tpu's windowed kernel and q-range shards, the CONTIG
-preset at scale) are not ported yet and raise NotImplementedError.
+(use_device=False) runs the numpy oracle.  Problems beyond SHARD_N
+fragments are first cut into left-haloed q-range shards, solved in
+sequential rounds, on either path.
 """
 
 from __future__ import annotations
@@ -32,16 +34,78 @@ import torch
 from ..ops.gapcost import GapParams
 from ..ops.sdp import chain_scores_np
 from ..ops.sdp_blocked import chain_mask_from_scores, chain_scores_blocked
+from ..ops.sdp_windowed import (chain_scores_windowed, far_schedule,
+                                resolve_far_np)
 from ..options import Options
 from ..utils import pow2_at_least as _pow2
 
 _BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
-# problems beyond the top bucket (lra_tpu: windowed kernel, q-range
-# shards) are not in this port yet
+# problems beyond the top bucket run on the windowed kernel: exact within
+# the last WIN_W fragments + saturated-cost far term (ops/sdp_windowed.py)
+WIN_W = 4096
+WIN_L = 64
+# density guard for the windowed kernel: its coverage argument (a
+# predecessor missed by both the W-rank near window and the saturated far
+# term is an edge SPLITChain would cut) needs the W-rank window to span
+# >= splitdist (50k, reference Options.h:191) bases of q.  Repeat-dense
+# problems can pack more than W anchors into one 50k q-span; _windowed_W
+# escalates W to cover the densest span, capped at WIN_WMAX.
+WIN_WMAX = 16384
+SPLIT_SPAN = 50000
+
+
+def _windowed_W(qS, base: int = WIN_W, cap: int = WIN_WMAX) -> int:
+    """Pick the near-window size for one q-sorted problem: the smallest
+    power-of-two >= the max number of fragments in any SPLIT_SPAN q-span
+    (so every unsaturated predecessor candidate is seen exactly), floored
+    at `base` and capped at `cap`."""
+    n = len(qS)
+    if n == 0:
+        return base
+    lo = np.searchsorted(qS, qS - SPLIT_SPAN, side="left")
+    dens = int((np.arange(n) - lo).max()) + 1
+    W = base
+    while W < min(dens, cap):
+        W *= 2
+    return W
+
+
+# giant problems (megabase contigs) are additionally split into q-range
+# shards with a left halo and stitched.  The halo exceeds the reference's
+# splitdist (50k, Options.h:191): a predecessor edge that sharding can
+# drop spans a gap the reference's SPLITChain would cut into separate
+# segments anyway.  Both are read at call time (tests patch them).
 SHARD_N = 32768
-_NOT_PORTED = ("chaining problems of more than {} fragments need lra_tpu's "
-               "windowed SDP and q-range shards, which this port does not "
-               "have yet (ROADMAP.md, queue 1: CONTIG at scale)")
+SHARD_HALO = 60000
+
+
+def _shard_problem(p: "ChainProblem", shard_n: int, halo: int) -> list:
+    """Split one huge q-sorted problem into left-haloed shards.
+
+    Returns [(child, core_lo, core_hi, sel_off)]: child rows
+    [core_lo-sel_off : core_hi-sel_off] are the shard's OWNED rows
+    (parent rows [core_lo:core_hi]); earlier child rows are halo
+    predecessors (fragments within `halo` bases of q before the core).
+    Only a LEFT halo is needed: V[i] depends on predecessors alone."""
+    n = len(p.qS)
+    shard_n = max(1, shard_n)
+    k = (n + shard_n - 1) // shard_n
+    out = []
+    for s in range(k):
+        lo = s * n // k
+        hi = (s + 1) * n // k
+        off = int(np.searchsorted(p.qS, p.qS[lo] - halo, side="left"))
+        sel = slice(off, hi)
+        # copies, not views: halo rows are frozen in place (score := V,
+        # qS := -1) without touching the parent
+        child = ChainProblem(
+            p.qS[sel].copy(), p.qE[sel].copy(), p.tS[sel].copy(),
+            p.tE[sel].copy(), p.score[sel].astype(np.float32),
+            np.asarray(p.lane1)[sel].copy(),
+            np.asarray(p.lane2)[sel].copy(),
+            np.arange(hi - off, dtype=np.int64), p.tbase)
+        out.append((child, lo, hi, off))
+    return out
 
 
 def _chain_packed(qS, qE, tS, tE, sc, l1, l2, valid, key):
@@ -61,6 +125,13 @@ def _chain_packed_masked(qS, qE, tS, tE, sc, l1, l2, valid, key):
                                         valid, key)
     vmax, bits = chain_mask_from_scores(V, bp, valid)
     return torch.cat([bits, vmax.view(torch.int32)[:, None]], dim=1)
+
+
+def _chain_packed_windowed(args, key, W):
+    """The windowed kernel's result as one int32[2, B, N] (V bitcast;
+    bp*4+lane, bp >= FAR2 = -3)."""
+    V, bp, lane = chain_scores_windowed(*args, key, L=WIN_L, W=W)
+    return torch.stack([V.view(torch.int32), bp * 4 + lane])
 
 
 def _bucket(n: int) -> int:
@@ -86,6 +157,9 @@ class ChainProblem:
     # (best_chain/chain_vmax) — the device tracebacks and downloads a
     # ~100x smaller chain bitmask instead of V/bp/lane
     need_full: bool = True
+    # windowed-kernel near-window size used for this problem (set by
+    # _solve_batch; needed to resolve FAR sentinels consistently)
+    win_W: int = WIN_W
     # results
     V: np.ndarray | None = None
     bp: np.ndarray | None = None
@@ -94,18 +168,91 @@ class ChainProblem:
     vmax: float = 0.0
 
 
+def pad_problems(plist: list, B: int, N: int) -> list:
+    """The kernels' fragment arguments of a bucket as numpy [B, N] arrays:
+    qS, qE, tS, tE (int32), score (f32), lane1, lane2, valid (bool);
+    padding rows are invalid, laneless and never a predecessor."""
+    def pad(attr, dtype, fill=0):
+        out = np.full((B, N), fill, dtype)
+        for b, p in enumerate(plist):
+            a = getattr(p, attr)
+            out[b, :len(a)] = a
+        return out
+    valid = np.zeros((B, N), bool)
+    for b, p in enumerate(plist):
+        valid[b, :len(p.qS)] = True
+    return [pad("qS", np.int32), pad("qE", np.int32, fill=2**30),
+            pad("tS", np.int32), pad("tE", np.int32),
+            pad("score", np.float32), pad("lane1", bool, fill=False),
+            pad("lane2", bool, fill=False), valid]
+
+
+def pad_far_schedules(plist: list, B: int, N: int) -> list:
+    """The windowed kernel's far schedules of a bucket (far_schedule per
+    problem, padded): perm1, perm2, ok1, ok2, qer1, qer2, rank1, rank2
+    as [B, N] and ins_hi as [B, N/WIN_L]."""
+    sch = {k: np.full((B, N), f, np.int32) for k, f in
+           (("perm1", 0), ("perm2", 0), ("qer1", 2 ** 30),
+            ("qer2", 2 ** 30), ("rank1", 0), ("rank2", 0))}
+    sch["ok1"] = np.zeros((B, N), bool)
+    sch["ok2"] = np.zeros((B, N), bool)
+    sch["ins_hi"] = np.zeros((B, N // WIN_L), np.int32)
+    for b, p in enumerate(plist):
+        n = len(p.qS)
+        s = far_schedule(p.qS, p.qE, p.tS, p.tE, np.asarray(p.lane1, bool),
+                         np.asarray(p.lane2, bool), np.ones(n, bool), WIN_L)
+        for k in ("perm1", "perm2", "ok1", "ok2", "qer1", "qer2", "rank1",
+                  "rank2"):
+            sch[k][b, :n] = s[k]
+        sch["ins_hi"][b, :len(s["ins_hi"])] = s["ins_hi"]
+    return [sch[k] for k in ("perm1", "perm2", "ok1", "ok2", "qer1", "qer2",
+                             "rank1", "rank2", "ins_hi")]
+
+
 def solve_problems(problems: list, gp: GapParams, use_device: bool = True,
                    device="cuda"):
     """Run chain DP for many problems, bucketed+batched on ``device``
     (use_device=True) or on the numpy oracle (use_device=False).
 
-    Problems of more than SHARD_N fragments (lra_tpu solves them in
-    q-range shards) raise NotImplementedError."""
-    big = [len(p.qS) for p in problems if len(p.qS) > SHARD_N]
-    if big:
-        raise NotImplementedError(_NOT_PORTED.format(SHARD_N)
-                                  + f" (got {max(big)})")
-    _solve_batch(problems, gp, use_device, device)
+    Giant problems (len > SHARD_N) are split into q-range shards with a
+    left halo and solved in SEQUENTIAL rounds: shard r's halo rows are
+    frozen to their final V from rounds < r (score := V, qS := -1 so
+    they accept no predecessors), so chain values accumulate across shard
+    boundaries exactly; only predecessor edges spanning more than
+    SHARD_HALO bases of q with no intermediate chain fragment are lost —
+    gaps the reference's SPLITChain would cut regardless.  Shards of
+    different problems batch together per round.
+    """
+    sharded = [p for p in problems if len(p.qS) > SHARD_N]
+    normal = [p for p in problems if len(p.qS) <= SHARD_N]
+    plans = []
+    for p in sharded:
+        childs = _shard_problem(p, SHARD_N, SHARD_HALO)
+        n = len(p.qS)
+        p.V = np.full(n, -3.0e38, np.float32)
+        p.bp = np.full(n, -1, np.int32)
+        p.lane = np.zeros(n, np.int32)
+        plans.append((p, childs))
+    rounds = max((len(c) for _, c in plans), default=0)
+    for r in range(max(1, rounds)):
+        batch = normal if r == 0 else []
+        stitches = []
+        for p, childs in plans:
+            if r < len(childs):
+                child, lo, hi, off = childs[r]
+                nh = lo - off
+                if nh > 0:
+                    child.score[:nh] = p.V[off:lo]
+                    child.qS[:nh] = -1
+                batch.append(child)
+                stitches.append((p, childs[r]))
+        _solve_batch(batch, gp, use_device, device)
+        for p, (c, lo, hi, off) in stitches:
+            local = slice(lo - off, hi - off)
+            p.V[lo:hi] = c.V[local]
+            bp = c.bp[local]
+            p.bp[lo:hi] = np.where(bp >= 0, bp + off, -1)
+            p.lane[lo:hi] = c.lane[local]
 
 
 def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
@@ -131,37 +278,38 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
     from ..parallel.mesh import batch_multiple, place_many
 
     by_bucket: dict = {}
+    windowed: dict = {}
     for p in large:
         n = len(p.qS)
-        if n > _BUCKETS[-1]:
-            raise NotImplementedError(_NOT_PORTED.format(_BUCKETS[-1])
-                                      + f" on the device (got {n})")
-        by_bucket.setdefault((_bucket(n), p.need_full), []).append(p)
+        if n <= _BUCKETS[-1]:
+            by_bucket.setdefault((_bucket(n), p.need_full), []).append(p)
+        else:
+            # the windowed kernel may emit FAR sentinels the host must
+            # resolve, so it always downloads the full result; W is
+            # escalated per problem by the repeat-density guard
+            N = ((n + 8191) // 8192) * 8192
+            windowed.setdefault((N, _windowed_W(p.qS)), []).append(p)
     key = gp.static_key()
     pending = []
-    for (N, full), plist in by_bucket.items():
-        B = batch_multiple(_pow2(len(plist), 8))
-        def pad(attr, dtype, fill=0):
-            out = np.full((B, N), fill, dtype)
-            for b, p in enumerate(plist):
-                a = getattr(p, attr)
-                out[b, :len(a)] = a
-            return out
-        qS = pad("qS", np.int32)
-        qE = pad("qE", np.int32, fill=2**30)   # padding never a predecessor
-        tS = pad("tS", np.int32)
-        tE = pad("tE", np.int32)
-        sc = pad("score", np.float32)
-        l1 = pad("lane1", bool, fill=False)
-        l2 = pad("lane2", bool, fill=False)
-        valid = np.zeros((B, N), bool)
-        for b, p in enumerate(plist):
-            valid[b, :len(p.qS)] = True
-        args = place_many(qS, qE, tS, tE, sc, l1, l2, valid, device=device)
-        if full:
-            packed = _chain_packed(*args, key)
+    for bkey, plist in list(by_bucket.items()) + list(windowed.items()):
+        N = bkey[0]
+        is_win = N > _BUCKETS[-1]
+        win_W = bkey[1] if is_win else 0
+        full = True if is_win else bkey[1]
+        B = batch_multiple(_pow2(len(plist), 1 if is_win else 8))
+        arrays = pad_problems(plist, B, N)
+        if is_win:
+            # host precompute of the far-term schedules, padded
+            arrays += pad_far_schedules(plist, B, N)
+            for p in plist:
+                p.win_W = win_W
+            packed = _chain_packed_windowed(
+                place_many(*arrays, device=device), key, win_W)
+        elif full:
+            packed = _chain_packed(*place_many(*arrays, device=device), key)
         else:
-            packed = _chain_packed_masked(*args, key)
+            packed = _chain_packed_masked(*place_many(*arrays, device=device),
+                                          key)
         pending.append((plist, full, packed))
     # one flat device-to-host copy for all buckets
     merged = None
@@ -193,6 +341,16 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
             n = len(p.qS)
             p.V, p.bp, p.lane = V[b, :n].copy(), bp[b, :n].copy(), \
                 lane[b, :n].copy()
+            # windowed kernel: resolve FAR1/FAR2 backpointer sentinels on
+            # the host (rare; the device only records that the saturated
+            # far term won, not which fragment achieved it)
+            far = np.nonzero(p.bp < -1)[0]
+            for i in far:
+                p.bp[i] = resolve_far_np(
+                    int(i), p.qS, p.qE, p.tS, p.tE, p.V,
+                    np.asarray(p.lane1, bool), np.asarray(p.lane2, bool),
+                    np.ones(n, bool), 1 if p.bp[i] == -2 else 2, WIN_L,
+                    p.win_W, N=packed.shape[-1])
 
 
 @dataclass

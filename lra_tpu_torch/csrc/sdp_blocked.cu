@@ -2,17 +2,13 @@
 //
 // Replaces lra_tpu/ops/sdp_blocked.py:chain_scores_blocked (a jitted
 // lax.scan over blocks of L=64 fragments) and, inlined, the PWL gap cost
-// lra_tpu/ops/gapcost.py:pwl_select_jnp.  Same recurrence, same f32
-// arithmetic, same tie rules:
+// lra_tpu/ops/gapcost.py:pwl_select_jnp (pwl.cuh).  Same recurrence,
+// same f32 arithmetic, same tie rules:
 //   * argmax takes the first index (cross-block and in-block);
 //   * lane 2 only if c2 > c1 at the argmax;
 //   * an in-block candidate wins only if strictly better;
 //   * a chain starts when the best candidate is <= 0;
 //   * NEG = -3e38 marks "no predecessor".
-// The PWL piece value s*x + b is two separately rounded f32 ops
-// (__fmul_rn, __fadd_rn): nvcc would otherwise contract it into an FMA
-// and the floor could see a different value.
-//
 // Design: one CTA (8 warps) per problem, V kept in shared memory.  For
 // each block of 64 rows, every warp owns 8 rows and its lanes stride over
 // the earlier fragments j < b0 (the cross-block max over V[j] + w; later
@@ -28,52 +24,13 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "pwl.cuh"
+
 namespace {
 
 constexpr int L = 64;
-constexpr int NPIECE = 24;
 constexpr int NTHREADS = 256;
 constexpr float NEG = -3.0e38f;
-
-__constant__ int c_stops[NPIECE + 1] = {
-    0, 5, 10, 20, 40, 80, 100, 200, 300, 500, 1000, 2000, 3000, 4000, 5000,
-    6000, 7000, 8000, 9000, 15000, 20000, 30000, 40000, 50000, 100000};
-
-struct Pwl {
-  float slope[NPIECE];
-  float inter[NPIECE];
-  float c1, c2;
-};
-
-// PWL_w(x): pieces overwrite ascending (the last piece with STOPS[i] <= x
-// wins; zero-slope pieces are skipped), then floor and two ceilings.
-__device__ __forceinline__ float pwl(int x, const Pwl& p) {
-  const float xf = __int2float_rn(x);
-  float pen = 0.f;
-#pragma unroll
-  for (int i = 0; i < NPIECE; ++i) {
-    if (p.slope[i] != 0.f && x >= c_stops[i])
-      pen = __fadd_rn(__fmul_rn(p.slope[i], xf), p.inter[i]);
-  }
-  pen = floorf(pen);
-  if (pen >= p.c1 && pen < p.c2) pen = p.c1;
-  if (pen > p.c2) pen = p.c2;
-  return x <= 2 ? 0.f : pen;
-}
-
-__device__ __forceinline__ float pair_cost(int di, int dj, const Pwl& p) {
-  return -pwl(abs(di - dj) + 1, p);
-}
-
-// (value, index) max with the first index winning ties
-__device__ __forceinline__ void better(float& v, int& a, int& f, float ov,
-                                       int oa, int of) {
-  if (ov > v || (ov == v && oa < a)) {
-    v = ov;
-    a = oa;
-    f = of;
-  }
-}
 
 __global__ void __launch_bounds__(NTHREADS)
 sdp_blocked_kernel(const int* __restrict__ qS, const int* __restrict__ qE,

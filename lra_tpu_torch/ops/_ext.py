@@ -28,14 +28,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("sdp_blocked", "banded_global", "banded_refine", "rowsync",
-           "one_gap", "chain_mask")
+           "one_gap", "chain_mask", "sdp_windowed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = {"chain_scores_blocked": 0, "banded_global_traced_packed": 0,
             "banded_refine_traced_packed": 0, "banded_pallas_rowsync": 0,
-            "one_gap_traced": 0, "chain_mask_from_scores": 0}
+            "one_gap_traced": 0, "chain_mask_from_scores": 0,
+            "chain_scores_windowed": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Read simulation for tests and benchmarks.
+"""Read and contig simulation for tests and benchmarks.
 
 A lightweight stand-in for the reference's ``alchemy2`` model-based
 simulator (reference: Alchemy2.cpp:32-63): random genomes, and reads
@@ -60,3 +60,61 @@ def sample_read(rng, genome_codes: np.ndarray, length: int,
     if strand:
         read = sequtils.revcomp(read)
     return SimRead(read, start, len(span), strand)
+
+
+def draft_contig(rng, codes: np.ndarray, start: int, size: int,
+                 dele: int = 5000, ins: int = 2000, snp: float = 0.001,
+                 indel: float = 0.004) -> np.ndarray:
+    """A draft-assembly contig of about `size` bases from codes[start:]:
+    a `dele`-base DEL at size/3, `ins` random bases inserted at 2*size/3,
+    then SNPs at rate `snp`, one-base deletions at rate `indel` and
+    one-base insertions at rate `indel`.  At its defaults, the 2.5 Mb
+    draft contig that lra_tpu holds bit-identical to lra through the
+    windowed SDP (numpy seed 5): its chains break into ~5.8 k
+    same-diagonal fragments per Mb."""
+    seq = codes[start:start + size + dele].copy()
+    dpos = size // 3
+    seq = np.concatenate([seq[:dpos], seq[dpos + dele:]])
+    ipos = 2 * size // 3
+    insert = rng.integers(0, 4, ins).astype(np.uint8)
+    seq = np.concatenate([seq[:ipos], insert, seq[ipos:]])
+    snp_pos = np.nonzero(rng.random(len(seq)) < snp)[0]
+    seq[snp_pos] = (seq[snp_pos] + 1 + rng.integers(0, 3, len(snp_pos))) % 4
+    seq = seq[rng.random(len(seq)) >= indel]
+    parts, prev = [], 0
+    for p in np.nonzero(rng.random(len(seq)) < indel)[0]:
+        parts.append(seq[prev:p])
+        parts.append(rng.integers(0, 4, 1).astype(np.uint8))
+        prev = p
+    parts.append(seq[prev:])
+    return np.concatenate(parts)
+
+
+def contig_chain_arrays(rng, n: int, repeat_dense: bool = False) -> tuple:
+    """One contig-like chaining problem, as ChainProblem's arguments
+    (qS, qE, tS, tE, score, lane1, lane2, order, tbase): n fragments of
+    15-60 bp at ~60 bp of q each (so the windowed SDP's density guard
+    keeps W = 4096), near one diagonal with 1 % saturated t-jumps, 80 %
+    on the forward lane.  With repeat_dense (n is ignored): a colinear
+    chain of 400 fragments and a cloud of 1,200 weak decoys on far
+    diagonals packed into one of its q-gaps, so that the windowed SDP's
+    far term wins after the cloud (FAR sentinels)."""
+    if repeat_dense:
+        qT = np.arange(400, dtype=np.int64) * 60
+        qD = qT[200] + 1 + rng.integers(0, 58, 1200)
+        qS = np.sort(np.concatenate([qT, qD]))
+        decoy = np.isin(qS, qD) & ~np.isin(qS, qT)
+        tS = qS + 100
+        tS[decoy] += 10 ** 6 + rng.integers(0, 10 ** 6, decoy.sum())
+        ln = np.full(len(qS), 50)
+        score = np.where(decoy, 10.0, 120.0).astype(np.float32)
+        lane1 = np.ones(len(qS), bool)
+    else:
+        ln = rng.integers(15, 60, n)
+        qS = np.sort(rng.integers(0, 60 * n, n)).astype(np.int64)
+        tS = (qS + rng.integers(-1500, 1500, n)).clip(0)
+        tS[rng.random(n) < 0.01] += 300000
+        score = (ln * 2.0).astype(np.float32)
+        lane1 = rng.random(n) < 0.8
+    return (qS, qS + ln, tS, tS + ln, score, lane1, ~lane1,
+            np.arange(len(qS), dtype=np.int64), 0)

@@ -70,12 +70,14 @@ def test_kernel_wrappers_refuse_cpu_tensors_for_the_cuda_path():
 
 
 def test_kernel_stops_table_matches_gapcost():
-    """The SDP kernel compiles the PWL breakpoints in; they must be
-    gapcost.STOPS."""
+    """The SDP kernels (K2, K7) compile the PWL breakpoints in from
+    csrc/pwl.cuh; they must be gapcost.STOPS."""
     from lra_tpu_torch.ops.gapcost import STOPS
 
-    src = open(os.path.join(ROOT, "lra_tpu_torch", "csrc",
-                            "sdp_blocked.cu")).read()
+    csrc = os.path.join(ROOT, "lra_tpu_torch", "csrc")
+    for name in ("sdp_blocked.cu", "sdp_windowed.cu"):
+        assert '#include "pwl.cuh"' in open(os.path.join(csrc, name)).read()
+    src = open(os.path.join(csrc, "pwl.cuh")).read()
     body = re.search(r"c_stops\[NPIECE \+ 1\] = \{([^}]*)\}", src).group(1)
     vals = [int(x) for x in body.replace("\n", " ").split(",")]
     assert vals == [int(s) for s in STOPS]

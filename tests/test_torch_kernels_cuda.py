@@ -12,11 +12,14 @@ import pytest
 import torch
 
 from lra_tpu_torch import preset
+from lra_tpu_torch.chain import driver
 from lra_tpu_torch.ops import affine_kernel as ak
 from lra_tpu_torch.ops import affine_pallas as ap
 from lra_tpu_torch.ops import one_gap as og
 from lra_tpu_torch.ops import sdp_blocked as sb
+from lra_tpu_torch.ops import sdp_windowed as sw
 from lra_tpu_torch.ops.gapcost import from_options
+from lra_tpu_torch.sim import contig_chain_arrays
 
 torch.set_num_threads(2)
 M, MM, IND = 4, -3, -4
@@ -169,3 +172,29 @@ def test_chain_mask_kernel_matches_plain(cuda_device, B, N):
     assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
     assert torch.equal(got[1], ref[1])
     assert bool((ref[1][1:] != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,N,W,repeat_dense", [
+    ((8193, 5000), 16384, 4096, False), ((9000,), 16384, 16384, False),
+    ((3000, 2000, 100, 1), 8192, 4096, False), ((0,), 1664, 64, True)])
+def test_windowed_kernel_matches_plain(cuda_device, sizes, N, W,
+                                       repeat_dense):
+    """K7 at driver-padded shapes, up to W = 16384, and on an instance
+    where the far term wins (FAR1/FAR2 sentinels in bp)."""
+    rng = np.random.default_rng(N + W)
+    plist = [driver.ChainProblem(*contig_chain_arrays(rng, n, repeat_dense))
+             for n in sizes]
+    B = len(plist)
+    arrays = driver.pad_problems(plist, B, N) + \
+        driver.pad_far_schedules(plist, B, N)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    key = from_options(preset("contig")).static_key()
+    got = sw.chain_scores_windowed(*args, key, L=64, W=W)
+    ref = sw.chain_scores_windowed_plain(*args, key, L=64, W=W)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert bool((ref[1] >= 0).any())
+    if repeat_dense:
+        assert bool((ref[1] < -1).any())

@@ -13,6 +13,7 @@ from lra_tpu.ops import sdp_blocked as jsdp
 from lra_tpu.ops.gapcost import from_options
 from lra_tpu_torch.chain import driver as tdriver
 from lra_tpu_torch.ops import sdp_blocked as tsdp
+from lra_tpu_torch.sim import contig_chain_arrays
 
 torch.set_num_threads(2)
 
@@ -95,8 +96,59 @@ def test_solve_problems_matches_jax(use_device):
             assert tdriver.chain_vmax(b) == jdriver.chain_vmax(a)
 
 
-def test_solve_problems_beyond_8192_fragments_not_ported():
+def big_problems(mod, seed, sizes):
+    """Contig-like problems (lra_tpu_torch.sim.contig_chain_arrays) as
+    ChainProblems of the driver module `mod`."""
+    return [mod.ChainProblem(*contig_chain_arrays(
+        np.random.default_rng(1000 * seed + i), n))
+        for i, n in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("case,use_device", [
+    ("windowed", True), ("sharded", True), ("sharded", False),
+    ("sharded_mixed", False)])
+def test_solve_problems_beyond_8192_matches_jax(monkeypatch, case,
+                                                use_device):
+    """Problems past the top bucket and past SHARD_N.  "windowed": one
+    problem of 8193 fragments, the windowed kernel at N = 16384.
+    "sharded": ~10k fragments with SHARD_N cut to 4096 in both drivers
+    (and the buckets to (64,), so the shards' children run on the
+    windowed kernel too).  On the host path the numpy oracle is O(n^2)
+    per problem, so its cases shard 600 fragments at SHARD_N = 200
+    (beside a normal problem in round 0 for "sharded_mixed").  V, bp and
+    lane equal field by field."""
     gp = from_options(preset("ccs"))
-    (p,) = rand_problems(tdriver, 7, [8193], True)
-    with pytest.raises(NotImplementedError, match="CONTIG"):
-        tdriver.solve_problems([p], gp, use_device=True, device="cpu")
+    if case == "windowed":
+        sizes = [8193]
+    elif use_device:
+        sizes = [10000]
+        for mod in (jdriver, tdriver):
+            monkeypatch.setattr(mod, "SHARD_N", 4096)
+            monkeypatch.setattr(mod, "_BUCKETS", (64,))
+    else:
+        sizes = [600] if case == "sharded" else [40, 600]
+        for mod in (jdriver, tdriver):
+            monkeypatch.setattr(mod, "SHARD_N", 200)
+    jp = big_problems(jdriver, 7, sizes)
+    tp = big_problems(tdriver, 7, sizes)
+    seen = []
+    orig = tdriver._solve_batch
+
+    def record(problems, *a):
+        seen.append([len(p.qS) for p in problems])
+        return orig(problems, *a)
+
+    monkeypatch.setattr(tdriver, "_solve_batch", record)
+    jdriver.solve_problems(jp, gp, use_device=use_device)
+    tdriver.solve_problems(tp, gp, use_device=use_device, device="cpu")
+    if case == "windowed":
+        assert seen == [[8193]]
+    else:
+        assert len(seen) >= 3           # sequential shard rounds
+    for a, b in zip(jp, tp):
+        for f in ("V", "bp", "lane"):
+            np.testing.assert_array_equal(np.asarray(getattr(b, f)),
+                                          np.asarray(getattr(a, f)), f)
+        assert b.win_W == a.win_W
+        assert len(a.qS) < 100 or (a.bp >= 0).sum() > len(a.qS) // 2
+        assert tdriver.best_chain(b) == jdriver.best_chain(a)
