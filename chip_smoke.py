@@ -13,8 +13,9 @@ failure.  Phases:
    seeded inputs at a spread of shapes — exact equality — with median
    CUDA-event times (K6 at (K, D) buckets up to 2052 lanes in both
    closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
-   at N = 8192..40960 with W = 4096 and 16384 and on an instance where
-   the far term wins);
+   at N = 1280..40960 with W = 64..16384, B = 1..3, on an instance where
+   the far term wins and on tie-dense instances), K7's cluster size and
+   how many such clusters fit on the card;
 3. end to end, through align_reads(..., device="cuda"), each path run
    with the launch counts reset just before and read just after, device
    stage times from CUDA events; a path fails if one of its kernels was
@@ -39,7 +40,8 @@ failure.  Phases:
    need_full=False through solve_problems; best_chain and chain_vmax
    must equal the need_full=True results;
 5. the recorded main-path inputs: each kernel against its plain twin
-   again (exact), timed, beside its bound;
+   again (exact), timed, beside its bound; K7 on the largest input of
+   CONTIG (b) and of (c), exact and timed with clusters of 8 and 16 CTAs;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
    device="cuda": the first 16 CCS reads in both configurations, the
    first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
@@ -241,17 +243,22 @@ def sdp_inputs(rng, B, N, dev, nvalid=None):
     return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs]
 
 
-def windowed_inputs(rng, sizes, N, dev, repeat_dense=False):
+def windowed_inputs(rng, sizes, N, dev, kind="contig"):
     """K7's 17 arguments at the driver's padding, [B = len(sizes), N], of
-    contig-like problems or of the repeat-dense FAR-sentinel instance
-    (lra_tpu_torch.sim.contig_chain_arrays)."""
+    contig-like problems, of the repeat-dense FAR-sentinel instance
+    (lra_tpu_torch.sim.contig_chain_arrays) or of tie-dense problems of
+    (roots, collectors) (sim.tie_dense_chain_arrays)."""
     import torch
 
     from lra_tpu_torch.chain import driver
-    from lra_tpu_torch.sim import contig_chain_arrays
+    from lra_tpu_torch.sim import contig_chain_arrays, tie_dense_chain_arrays
 
-    plist = [driver.ChainProblem(*contig_chain_arrays(rng, n, repeat_dense))
-             for n in sizes]
+    if kind == "tie":
+        plist = [driver.ChainProblem(*tie_dense_chain_arrays(rng, *n))
+                 for n in sizes]
+    else:
+        plist = [driver.ChainProblem(*contig_chain_arrays(
+            rng, n, kind == "repeat")) for n in sizes]
     arrays = driver.pad_problems(plist, len(plist), N) + \
         driver.pad_far_schedules(plist, len(plist), N)
     return [torch.from_numpy(a).to(dev) for a in arrays]
@@ -385,30 +392,40 @@ def kernel_phase(dev) -> None:
         ms = cuda_ms(lambda: sb.chain_mask_from_scores(*args), 5)
         log(f"kernel chain_mask_from_scores B=16 N={NN}: exact; "
             f"{ms:.4f} ms (plain {pms:.1f} ms)")
-    # K7: driver-padded contig-like problems, and one where the far term
-    # wins (FAR1/FAR2 sentinels)
+    # K7: driver-padded contig-like problems (a block count that is no
+    # multiple of the cluster, windows of fewer blocks than the cluster's
+    # CTAs, three clusters), one where the far term wins (FAR1/FAR2
+    # sentinels), and tie-dense problems whose first-index and lane ties
+    # cross CTAs
     ckey = from_options(preset("contig")).static_key()
-    for sizes, N, W, dense in (((8000, 3000), 8192, 4096, False),
-                               ((16000,), 16384, 16384, False),
-                               ((40000,), 40960, 4096, False),
-                               ((0,), 1664, 64, True)):
-        a = windowed_inputs(rng, sizes, N, dev, dense)
+    for W in (64, 4096, 16384):
+        log(f"K7 cluster at W={W}: {sw.cluster_info(W)}")
+    for sizes, N, W, kind in (((8000, 3000), 8192, 4096, "contig"),
+                              ((16000,), 16384, 16384, "contig"),
+                              ((40000,), 40960, 4096, "contig"),
+                              ((0,), 1664, 64, "repeat"),
+                              ((8200,), 8256, 4096, "contig"),
+                              ((3000,), 3072, 128, "contig"),
+                              ((5000, 2000), 5120, 256, "contig"),
+                              ((9000, 4000, 6000), 9216, 4096, "contig"),
+                              (((2000, 3000),), 5056, 1024, "tie"),
+                              (((700, 500), (300, 400)), 1280, 256, "tie")):
+        a = windowed_inputs(rng, sizes, N, dev, kind)
         got = sw.chain_scores_windowed(*a, ckey, W=W)
         torch.cuda.synchronize()
         ref, pms = timed(lambda: sw.chain_scores_windowed_plain(*a, ckey,
                                                                 W=W))
         for nm, x, y in zip(("V", "bp", "lane"), got, ref):
-            exact(f"chain_scores_windowed N={N} W={W} {nm}", x, y)
+            exact(f"chain_scores_windowed {sizes} N={N} W={W} {nm}", x, y)
         far = int((ref[1] < -1).sum())
-        if dense and not far:
-            raise AssertionError("chain_scores_windowed: the far term won "
-                                 "nowhere on the repeat-dense instance")
+        if kind != "contig" and not far:
+            raise AssertionError(f"chain_scores_windowed: the far term won "
+                                 f"nowhere on the {kind} instance")
         ms = cuda_ms(lambda: sw.chain_scores_windowed(*a, ckey, W=W), 3)
         bnd, by = windowed_bound(a, W)
         log(f"kernel chain_scores_windowed B={len(sizes)} N={N} W={W} "
-            f"({'repeat-dense, ' if dense else ''}{far} FAR sentinels): "
-            f"exact; {ms:.3f} ms (plain {pms:.1f} ms, bound {bnd:.4f} ms, "
-            f"{by})")
+            f"({kind}, {far} FAR sentinels): exact; {ms:.3f} ms (plain "
+            f"{pms:.1f} ms, bound {bnd:.4f} ms, {by})")
     for K in (30, 128, 512):
         for S in (256, 2048):
             a = banded_inputs(rng, 8, S, K, dev)
@@ -504,6 +521,8 @@ class Recorder:
 
     def __init__(self):
         self.best: dict = {}
+        self.windowed: dict = {}    # path label: K7's largest input there
+        self.path = None
         self.saved = []
 
     def __enter__(self):
@@ -535,11 +554,15 @@ class Recorder:
     def _wrap(self, name, orig):
         def rec(*args, **kw):
             work = self.work(name, args, kw)
-            if work > self.best.get(name, (-1,))[0]:
-                self.best[name] = (work, [x.clone() if hasattr(x, "clone")
-                                          else x for x in args],
-                                   {k: v.clone() if hasattr(v, "clone")
-                                    else v for k, v in kw.items()})
+            keep = [(self.best, name)]
+            if name == "chain_scores_windowed":
+                keep.append((self.windowed, self.path))
+            for store, k in keep:
+                if work > store.get(k, (-1,))[0]:
+                    store[k] = (work, [x.clone() if hasattr(x, "clone")
+                                       else x for x in args],
+                                {kk: v.clone() if hasattr(v, "clone")
+                                 else v for kk, v in kw.items()})
             return orig(*args, **kw)
         return rec
 
@@ -812,6 +835,7 @@ def e2e_phase(work, rec, mixes) -> tuple:
         n = sum(len(b) for b in batches)
         bases = sum(len(c) for b in batches for _, c in b)
         mix = JobMix()
+        rec.path = label
         t0 = time.perf_counter()
         with rec, mix:
             align_all(batches, genome, idx, opts, gli, DEV)
@@ -987,6 +1011,42 @@ def main_path_kernels(rec, launches) -> list:
     return rows
 
 
+def windowed_paths_phase(rec) -> None:
+    """K7 against its twin on the largest input each CONTIG path gave it
+    (exact), timed with the cluster at 8 CTAs (portable) and at 16
+    (non-portable), each beside cudaOccupancyMaxActiveClusters; the
+    wrapper's CLUSTER is restored afterwards."""
+    import torch
+
+    from lra_tpu_torch.ops import sdp_windowed as sw
+
+    if not rec.windowed:
+        raise AssertionError("no main-path call of chain_scores_windowed "
+                             "recorded")
+    keep = sw.CLUSTER
+    try:
+        for label, (_, args, kw) in rec.windowed.items():
+            ref = sw.chain_scores_windowed_plain(*args, **kw)
+            shape = (f"B={args[0].shape[0]} N={args[0].shape[1]} "
+                     f"W={kw['W']}")
+            res = []
+            for C in (8, 16, 8, 16):
+                sw.CLUSTER = C
+                info = sw.cluster_info(kw["W"], C)
+                got = sw.chain_scores_windowed(*args, **kw)
+                torch.cuda.synchronize()
+                for nm, x, y in zip(("V", "bp", "lane"), got, ref):
+                    exact(f"chain_scores_windowed [{label}] C={C} {nm}", x, y)
+                ms = cuda_ms(lambda: sw.chain_scores_windowed(*args, **kw), 5)
+                res.append(f"C={C} {ms:.4f} ms ({info['max_active_clusters']}"
+                           f" clusters fit, {info['dyn_smem']} B dynamic "
+                           "shared memory)")
+            log(f"K7 [{label}] main-path input {shape}: exact at C=8 and "
+                f"C=16; " + "; ".join(res))
+    finally:
+        sw.CLUSTER = keep
+
+
 def cpu_parity(work, all_lines) -> None:
     """The first reads (16 CCS, 4 ONT and CLR) on device="cpu" (plain
     twins) and on "cuda": SAM lines byte-equal to each other and to the
@@ -1143,6 +1203,7 @@ def main() -> int:
     chain_mask_phase(mixes["ccs use_pallas=True"].sdp2, work["ccs"][3], rec,
                      launches)
     rows = main_path_kernels(rec, launches)
+    windowed_paths_phase(rec)
     log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
     cpu_parity(work, all_lines)
     contig_parity(work)

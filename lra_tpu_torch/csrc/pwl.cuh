@@ -2,48 +2,87 @@
 // (sdp_blocked.cu, K2; sdp_windowed.cu, K7).
 //
 // Replaces lra_tpu/ops/gapcost.py:pwl_select_jnp, inlined per fragment
-// pair.  The piece value s*x + b is two separately rounded f32 ops
-// (__fmul_rn, __fadd_rn): nvcc would otherwise contract it into an FMA
-// and the floor could see a different value than the reference's.
+// pair.  The reference walks all 24 pieces in ascending order and keeps
+// the last one with STOPS[i] <= x and slope != 0.  Here the host folds
+// that rule into a table of effective pieces, one per stop index
+// (ops/gapcost.py:pwl_effective_pieces: the largest i' <= i with a
+// non-zero slope, or (0, 0) when there is none), and the device finds
+// the stop index by a 5-step binary search over the 25 stops.  Then one
+// piece value s*x + b, as two separately rounded f32 ops (__fmul_rn,
+// __fadd_rn): nvcc would otherwise contract it into an FMA and the floor
+// could see a different value than the reference's.  The same operands
+// go through the same two roundings as in the reference's chain (with no
+// effective piece, 0*x + 0 = +0, its start value), so the result is
+// bit-equal by construction (tests/test_torch_pwl_lookup.py checks the
+// numpy emulation of this lookup against lra_tpu for x in 0..120000).
+// The stops and the table live in shared memory: kernel parameters sit
+// in the constant bank, where lanes that read different indices are
+// served one address at a time.
 
 #pragma once
+
+#include <limits.h>
 
 namespace {
 
 constexpr int NPIECE = 24;
+constexpr int NSTOP = NPIECE + 1;
 
+// slope[25], inter[25] (effective piece per stop index), ceiling1,
+// ceiling2: the host array the wrappers pass (ops/sdp_blocked.py:
+// _pwl_host_params), copied into a kernel parameter
+struct Pwl {
+  float slope[NSTOP];
+  float inter[NSTOP];
+  float c1, c2;
+};
+
+// The lookup's shared-memory copy: the stops padded to 32 with INT_MAX
+// (so the search needs no bounds test) and (slope, inter) per stop index.
+struct PwlSmem {
+  int stops[32];
+  float2 piece[32];
+  float c1, c2;
+};
+
+// lra_tpu/ops/gapcost.py:STOPS, read once per CTA by pwl_load
 __constant__ int c_stops[NPIECE + 1] = {
     0, 5, 10, 20, 40, 80, 100, 200, 300, 500, 1000, 2000, 3000, 4000, 5000,
     6000, 7000, 8000, 9000, 15000, 20000, 30000, 40000, 50000, 100000};
 
-// slope[24], inter[24], ceiling1, ceiling2: the host array the wrappers
-// pass (ops/sdp_blocked.py:_pwl_host_params), copied into a kernel
-// parameter
-struct Pwl {
-  float slope[NPIECE];
-  float inter[NPIECE];
-  float c1, c2;
-};
-
-// PWL_w(x): pieces overwrite ascending (the last piece with STOPS[i] <= x
-// wins; zero-slope pieces are skipped), then floor and two ceilings.
-__device__ __forceinline__ float pwl(int x, const Pwl& p) {
-  const float xf = __int2float_rn(x);
-  float pen = 0.f;
-#pragma unroll
-  for (int i = 0; i < NPIECE; ++i) {
-    if (p.slope[i] != 0.f && x >= c_stops[i])
-      pen = __fadd_rn(__fmul_rn(p.slope[i], xf), p.inter[i]);
+// Fill s from p; every thread of the block calls it, and a barrier must
+// follow before the first pwl().
+__device__ __forceinline__ void pwl_load(PwlSmem& s, const Pwl& p) {
+  const int t = threadIdx.x;
+  if (t < 32) {
+    s.stops[t] = t < NSTOP ? c_stops[t] : INT_MAX;
+    s.piece[t] = t < NSTOP ? make_float2(p.slope[t], p.inter[t])
+                           : make_float2(0.f, 0.f);
   }
+  if (t == 0) {
+    s.c1 = p.c1;
+    s.c2 = p.c2;
+  }
+}
+
+// PWL_w(x) for x >= 0: the last stop <= x picks the effective piece,
+// then floor and two ceilings; x <= 2 is free.
+__device__ __forceinline__ float pwl(int x, const PwlSmem& s) {
+  int lo = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1)
+    if (s.stops[lo + step] <= x) lo += step;
+  const float2 pc = s.piece[lo];
+  float pen = __fadd_rn(__fmul_rn(pc.x, __int2float_rn(x)), pc.y);
   pen = floorf(pen);
-  if (pen >= p.c1 && pen < p.c2) pen = p.c1;
-  if (pen > p.c2) pen = p.c2;
+  if (pen >= s.c1 && pen < s.c2) pen = s.c1;
+  if (pen > s.c2) pen = s.c2;
   return x <= 2 ? 0.f : pen;
 }
 
 // w(di, dj) = -PWL_w(|di - dj| + 1)
-__device__ __forceinline__ float pair_cost(int di, int dj, const Pwl& p) {
-  return -pwl(abs(di - dj) + 1, p);
+__device__ __forceinline__ float pair_cost(int di, int dj, const PwlSmem& s) {
+  return -pwl(abs(di - dj) + 1, s);
 }
 
 // (value, index) max with the first index winning ties, as jnp.argmax

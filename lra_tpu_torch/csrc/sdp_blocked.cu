@@ -2,7 +2,8 @@
 //
 // Replaces lra_tpu/ops/sdp_blocked.py:chain_scores_blocked (a jitted
 // lax.scan over blocks of L=64 fragments) and, inlined, the PWL gap cost
-// lra_tpu/ops/gapcost.py:pwl_select_jnp (pwl.cuh).  Same recurrence,
+// lra_tpu/ops/gapcost.py:pwl_select_jnp (pwl.cuh: a binary search over
+// the stops and one effective piece, from a table in shared memory).  Same recurrence,
 // same f32 arithmetic, same tie rules:
 //   * argmax takes the first index (cross-block and in-block);
 //   * lane 2 only if c2 > c1 at the argmax;
@@ -47,6 +48,7 @@ sdp_blocked_kernel(const int* __restrict__ qS, const int* __restrict__ qE,
   __shared__ int s_lane[L];
   __shared__ float s_tc[L][L + 1];
   __shared__ int8_t s_tl[L][L];
+  __shared__ PwlSmem s_pw;
 
   const size_t off = (size_t)blockIdx.x * N;
   qS += off; qE += off; tS += off; tE += off; score += off;
@@ -54,6 +56,8 @@ sdp_blocked_kernel(const int* __restrict__ qS, const int* __restrict__ qE,
   Vout += off; bpout += off; laneout += off;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = NTHREADS / 32;
+  pwl_load(s_pw, pw);
+  __syncthreads();
 
   for (int b0 = 0; b0 < N; b0 += L) {
     // ---- cross-block candidates against V of rows < b0 ----
@@ -70,9 +74,9 @@ sdp_blocked_kernel(const int* __restrict__ qS, const int* __restrict__ qE,
         const int tSj = tS[j], tEj = tE[j];
         float c1 = NEG, c2 = NEG;
         if (l1i && lane1[j] && tEj <= tSi)
-          c1 = Vs[j] + pair_cost(d1si, tEj - qEj, pw);
+          c1 = Vs[j] + pair_cost(d1si, tEj - qEj, s_pw);
         if (l2i && lane2[j] && tSj >= tEi)
-          c2 = Vs[j] + pair_cost(d2si, tSj + qEj, pw);
+          c2 = Vs[j] + pair_cost(d2si, tSj + qEj, s_pw);
         const float c = fmaxf(c1, c2);
         if (c > best) {
           best = c;
@@ -101,9 +105,9 @@ sdp_blocked_kernel(const int* __restrict__ qS, const int* __restrict__ qE,
       const bool tm1 = tvis && tE[jj] <= tS[i] && lane1[jj] && lane1[i];
       const bool tm2 = tvis && tS[jj] >= tE[i] && lane2[jj] && lane2[i];
       const float tc1 =
-          tm1 ? pair_cost(tS[i] - qS[i], tE[jj] - qE[jj], pw) : NEG;
+          tm1 ? pair_cost(tS[i] - qS[i], tE[jj] - qE[jj], s_pw) : NEG;
       const float tc2 =
-          tm2 ? pair_cost(tE[i] + qS[i], tS[jj] + qE[jj], pw) : NEG;
+          tm2 ? pair_cost(tE[i] + qS[i], tS[jj] + qE[jj], s_pw) : NEG;
       s_tc[l][lp] = fmaxf(tc1, tc2);
       s_tl[l][lp] = tc2 > tc1 ? 2 : 1;
     }

@@ -15,10 +15,12 @@ Faithful quirks preserved:
 * ``PWL_w`` forces minX=2 (SubRountine.h:104): x <= 2 is free regardless.
 * two plateau ceilings (SubRountine.h:113-119).
 
-The device-side evaluation (pwl_select_torch, and its inlined copy in
-csrc/sdp_blocked.cu) is branch-free: the last breakpoint <= x picks the
-piece, then a multiply, an add (each rounded in f32, never contracted
-into an FMA), a floor and two clamps.
+The device-side evaluation (pwl_select_torch) is branch-free: the last
+breakpoint <= x picks the piece, then a multiply, an add (each rounded in
+f32, never contracted into an FMA), a floor and two clamps.  The CUDA
+kernels (csrc/pwl.cuh) find the same piece by a binary search over the
+stops and a host table of effective pieces (``pwl_effective_pieces``,
+emulated by ``pwl_lookup_np``), then do the same two rounded operations.
 """
 
 from __future__ import annotations
@@ -124,3 +126,47 @@ def pwl_select_torch(x: torch.Tensor, pwl_key) -> torch.Tensor:
                       torch.full_like(pen, ceiling1), pen)
     pen = torch.where(pen > ceiling2, torch.full_like(pen, ceiling2), pen)
     return torch.where(x <= 2, torch.zeros_like(pen), pen)
+
+
+# ------------------------------------------------- the kernels' lookup ---
+
+def pwl_effective_pieces(pwl_key) -> tuple:
+    """The CUDA kernels' piece table (csrc/pwl.cuh): for each stop index i
+    in 0..24, the slope and intercept of the piece that the select chain
+    above leaves in place for x in [STOPS[i], STOPS[i+1]): the largest
+    i' <= min(i, 23) with slope[i'] != 0 (pieces overwrite ascending,
+    zero-slope pieces are skipped), or (0, 0) when there is none, which
+    gives the chain's start value 0 through the same multiply and add.
+    Returns (slope f32[25], inter f32[25])."""
+    slope = np.asarray(pwl_key[0], np.float32)
+    inter = np.asarray(pwl_key[1], np.float32)
+    es = np.zeros(NUMPWL, np.float32)
+    ei = np.zeros(NUMPWL, np.float32)
+    cur = -1
+    for i in range(NUMPWL):
+        if i < NUMPWL - 1 and slope[i] != 0.0:
+            cur = i
+        if cur >= 0:
+            es[i], ei[i] = slope[cur], inter[cur]
+    return es, ei
+
+
+def pwl_lookup_np(x: np.ndarray, pwl_key) -> np.ndarray:
+    """Numpy emulation of the kernels' lookup, step for step: a binary
+    search for the last stop <= x (STOPS padded to 32 with int32 max),
+    one f32 multiply and one separately rounded f32 add on the effective
+    piece, then the floor, the two ceilings and the free x <= 2."""
+    es, ei = pwl_effective_pieces(pwl_key)
+    c1, c2 = np.float32(pwl_key[2]), np.float32(pwl_key[3])
+    stops = np.full(32, np.iinfo(np.int32).max, np.int64)
+    stops[:NUMPWL] = STOPS
+    x = np.asarray(x, np.int32)
+    lo = np.zeros(x.shape, np.int64)
+    for step in (16, 8, 4, 2, 1):
+        lo = np.where(stops[lo + step] <= x, lo + step, lo)
+    pen = np.float32(es[lo] * x.astype(np.float32))
+    pen = np.float32(pen + ei[lo])
+    pen = np.floor(pen)
+    pen = np.where((pen >= c1) & (pen < c2), c1, pen)
+    pen = np.where(pen > c2, c2, pen)
+    return np.where(x <= 2, np.float32(0.0), pen).astype(np.float32)

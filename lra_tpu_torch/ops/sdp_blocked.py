@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from . import _ext
-from .gapcost import NUMPWL, pwl_select_torch
+from .gapcost import NUMPWL, pwl_effective_pieces, pwl_select_torch
 
 NEG = -3.0e38    # float32(-3e38), the "no predecessor" value
 
@@ -132,13 +132,15 @@ def chain_scores_blocked_plain(qS, qE, tS, tE, score, lane1, lane2, valid,
 
 
 def _pwl_host_params(pwl_key):
-    """The kernel's PWL constants: slope[24], inter[24], ceiling1,
-    ceiling2 as one f32 host array."""
-    slope, inter, c1, c2 = pwl_key
-    vals = [float(x) for x in slope] + [float(x) for x in inter] + \
-        [float(c1), float(c2)]
-    if len(vals) != 2 * (NUMPWL - 1) + 2:
+    """The kernels' PWL constants (csrc/pwl.cuh's Pwl): the effective
+    piece per stop index, slope[25] and inter[25]
+    (gapcost.pwl_effective_pieces), then ceiling1, ceiling2, as one f32
+    host array."""
+    if len(pwl_key[0]) != NUMPWL - 1 or len(pwl_key[1]) != NUMPWL - 1:
         raise ValueError("pwl_key: expected 24 slopes and 24 intercepts")
+    es, ei = pwl_effective_pieces(pwl_key)
+    vals = [float(x) for x in es] + [float(x) for x in ei] + \
+        [float(pwl_key[2]), float(pwl_key[3])]
     return (ctypes.c_float * len(vals))(*vals)
 
 

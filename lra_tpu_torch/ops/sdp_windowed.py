@@ -24,7 +24,9 @@ Backpointers to far predecessors are the sentinels FAR1/FAR2, which the
 host resolves (``resolve_far_np``) from V and the schedule.
 
 ``chain_scores_windowed`` launches the CUDA kernel
-(csrc/sdp_windowed.cu) for CUDA tensors and runs
+(csrc/sdp_windowed.cu: one thread-block cluster of ``CLUSTER`` CTAs per
+problem, the near window split across the cluster) for CUDA tensors and
+runs
 ``chain_scores_windowed_plain`` for CPU tensors.  Both follow the
 reference step for step: every f32 sum has the same operands in the
 same grouping (the closure's squaring tree included), maxima are
@@ -281,8 +283,36 @@ def chain_scores_windowed_plain(qS, qE, tS, tE, score, lane1, lane2, valid,
             torch.cat(out_lane, 1).to(torch.int32))
 
 
-# 17 inputs, 3 outputs, the P1/P2 scratch, the host PWL array; B, N, W, R
-_WIN_ARGS = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4
+# CTAs per thread-block cluster, one cluster per problem
+# (csrc/sdp_windowed.cu): the portable 8 ran the CONTIG paths' K7 inputs
+# faster than the non-portable 16 on the H100 (chip_smoke.py times both;
+# PERF.md)
+CLUSTER = 8
+
+# 17 inputs, 3 outputs, the P1/P2 scratch, the host PWL array; B, N, W,
+# R, C
+_WIN_ARGS = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
+
+
+def cluster_info(W: int, C: int = None) -> dict:
+    """The kernel's cluster at window W: C, how many such clusters fit on
+    the card at once (cudaOccupancyMaxActiveClusters) and the dynamic
+    shared memory of one CTA.  Raises if the card cannot hold one."""
+    C = CLUSTER if C is None else C
+    lib = _ext._lib("sdp_windowed")
+    f = lib.lra_windowed_cluster_info
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_int)]
+    active, dyn = ctypes.c_int(0), ctypes.c_int(0)
+    rc = f(W, C, ctypes.byref(active), ctypes.byref(dyn))
+    if rc != 0 or active.value < 1:
+        raise RuntimeError(f"chain_scores_windowed: a cluster of {C} CTAs "
+                           f"at W={W} cannot be launched ({rc}: "
+                           f"{lib.lra_errstr(rc).decode()}, "
+                           f"{active.value} active clusters)")
+    return {"C": C, "max_active_clusters": active.value,
+            "dyn_smem": dyn.value}
 
 
 def _chain_scores_windowed_cuda(qS, qE, tS, tE, score, lane1, lane2, valid,
@@ -318,5 +348,5 @@ def _chain_scores_windowed_cuda(qS, qE, tS, tE, score, lane1, lane2, valid,
                 p(valid), p(perm1), p(perm2), p(ok1), p(ok2), p(qer1),
                 p(qer2), p(rank1), p(rank2), p(ins_hi), p(V), p(bp),
                 p(lane), p(scratch), ctypes.addressof(pwl), B, N, W,
-                _refresh_blocks(L, W, N))
+                _refresh_blocks(L, W, N), CLUSTER)
     return V, bp, lane

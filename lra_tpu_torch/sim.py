@@ -118,3 +118,29 @@ def contig_chain_arrays(rng, n: int, repeat_dense: bool = False) -> tuple:
         lane1 = rng.random(n) < 0.8
     return (qS, qS + ln, tS, tS + ln, score, lane1, ~lane1,
             np.arange(len(qS), dtype=np.int64), 0)
+
+
+def tie_dense_chain_arrays(rng, n_roots: int, n_coll: int) -> tuple:
+    """A chaining problem made of exact ties, as ChainProblem's arguments:
+    n_roots roots at one q (they overlap in q, so none precedes another:
+    V = score = 8000 each), then n_coll collectors 60 bp apart on q, far
+    from every root's diagonal (every PWL cost saturates at ceiling2)
+    and unable to chain to each other.  A root is a lane-1 candidate of
+    every collector when its t lies below the collectors' and a lane-2
+    candidate when it lies above; roots have lane 1, lane 2 or both, in
+    random order.  So every collector ties across all its candidates in
+    both lanes: its predecessor is the first index, its lane is decided
+    by the tie rule, and its far term ties with the near one."""
+    low = rng.random(n_roots) < 0.5
+    tS_root = np.where(low, rng.integers(0, 1000, n_roots),
+                       10 ** 8 + rng.integers(0, 1000, n_roots))
+    kind = rng.integers(0, 3, n_roots)        # lane 1, lane 2, both
+    qS = np.concatenate([np.zeros(n_roots, np.int64),
+                         100 + 60 * np.arange(n_coll, dtype=np.int64)])
+    tS = np.concatenate([tS_root, np.full(n_coll, 5 * 10 ** 7)])
+    score = np.concatenate([np.full(n_roots, 8000.0),
+                            np.full(n_coll, 100.0)]).astype(np.float32)
+    lane1 = np.concatenate([kind != 1, np.ones(n_coll, bool)])
+    lane2 = np.concatenate([kind != 0, np.ones(n_coll, bool)])
+    return (qS, qS + 50, tS, tS + 50, score, lane1, lane2,
+            np.arange(len(qS), dtype=np.int64), 0)

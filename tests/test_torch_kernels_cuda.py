@@ -19,7 +19,7 @@ from lra_tpu_torch.ops import one_gap as og
 from lra_tpu_torch.ops import sdp_blocked as sb
 from lra_tpu_torch.ops import sdp_windowed as sw
 from lra_tpu_torch.ops.gapcost import from_options
-from lra_tpu_torch.sim import contig_chain_arrays
+from lra_tpu_torch.sim import contig_chain_arrays, tie_dense_chain_arrays
 
 torch.set_num_threads(2)
 M, MM, IND = 4, -3, -4
@@ -174,21 +174,39 @@ def test_chain_mask_kernel_matches_plain(cuda_device, B, N):
     assert bool((ref[1][1:] != 0).any())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("sizes,N,W,repeat_dense", [
-    ((8193, 5000), 16384, 4096, False), ((9000,), 16384, 16384, False),
-    ((3000, 2000, 100, 1), 8192, 4096, False), ((0,), 1664, 64, True)])
-def test_windowed_kernel_matches_plain(cuda_device, sizes, N, W,
-                                       repeat_dense):
-    """K7 at driver-padded shapes, up to W = 16384, and on an instance
-    where the far term wins (FAR1/FAR2 sentinels in bp)."""
-    rng = np.random.default_rng(N + W)
-    plist = [driver.ChainProblem(*contig_chain_arrays(rng, n, repeat_dense))
-             for n in sizes]
+def windowed_batch(rng, sizes, N, kind, dev):
+    """K7's 17 arguments at the driver's padding: contig-like problems of
+    the given sizes, the repeat-dense FAR-sentinel instance, or tie-dense
+    problems of (roots, collectors)."""
+    if kind == "tie":
+        plist = [driver.ChainProblem(*tie_dense_chain_arrays(rng, *n))
+                 for n in sizes]
+    else:
+        plist = [driver.ChainProblem(*contig_chain_arrays(
+            rng, n, kind == "repeat")) for n in sizes]
     B = len(plist)
     arrays = driver.pad_problems(plist, B, N) + \
         driver.pad_far_schedules(plist, B, N)
-    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,N,W,kind", [
+    ((8193, 5000), 16384, 4096, "contig"), ((9000,), 16384, 16384, "contig"),
+    ((3000, 2000, 100, 1), 8192, 4096, "contig"), ((0,), 1664, 64, "repeat"),
+    ((8200,), 8256, 4096, "contig"), ((3000,), 3072, 128, "contig"),
+    ((5000, 2000), 5120, 256, "contig"),
+    ((9000, 4000, 6000), 9216, 4096, "contig"),
+    (((2000, 3000),), 5056, 1024, "tie"),
+    (((700, 500), (300, 400)), 1280, 256, "tie")])
+def test_windowed_kernel_matches_plain(cuda_device, sizes, N, W, kind):
+    """K7 at driver-padded shapes, up to W = 16384; a block count that is
+    no multiple of the cluster (N = 8256: 129 blocks), windows of 2 and
+    4 blocks (fewer than the cluster's CTAs), three clusters (B = 3); an
+    instance where the far term wins (FAR1/FAR2 sentinels in bp); and
+    tie-dense instances whose first-index and lane ties cross CTAs."""
+    args = windowed_batch(np.random.default_rng(N + W), sizes, N, kind,
+                          cuda_device)
     key = from_options(preset("contig")).static_key()
     got = sw.chain_scores_windowed(*args, key, L=64, W=W)
     ref = sw.chain_scores_windowed_plain(*args, key, L=64, W=W)
@@ -196,5 +214,14 @@ def test_windowed_kernel_matches_plain(cuda_device, sizes, N, W,
     assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
     assert bool((ref[1] >= 0).any())
-    if repeat_dense:
+    if kind != "contig":
         assert bool((ref[1] < -1).any())
+
+
+@pytest.mark.cuda
+def test_windowed_cluster_fits(cuda_device):
+    """The kernel's cluster (CLUSTER CTAs per problem) fits on the card at
+    every window the driver uses."""
+    for W in (64, 4096, 16384):
+        info = sw.cluster_info(W)
+        assert info["C"] == sw.CLUSTER and info["max_active_clusters"] >= 1

@@ -15,6 +15,7 @@ from lra_tpu.ops import sdp_windowed as jwin
 from lra_tpu.ops.gapcost import from_options
 from lra_tpu_torch.chain import driver as tdriver
 from lra_tpu_torch.ops import sdp_windowed as twin
+from lra_tpu_torch.sim import tie_dense_chain_arrays
 
 torch.set_num_threads(2)
 
@@ -86,6 +87,9 @@ def instance(name):
         return tw.random_instance(np.random.default_rng(7), 600), "ccs", 32, 64
     if name == "contig":
         return contig_instance(), "contig", 32, 256
+    if name == "tie_dense":
+        inst = tie_dense_chain_arrays(np.random.default_rng(23), 300, 400)
+        return inst[:7], "contig", 32, 128
     gp = from_options(preset("contig" if name.startswith("repeat")
                              else "ccs"))
     if name == "repeat_w64":
@@ -125,7 +129,7 @@ def kernel_args(inst, L):
 
 
 INSTANCES = ["random50", "random180", "random500", "w64", "contig",
-             "repeat_w64", "repeat_guard", "far_sentinel"]
+             "repeat_w64", "repeat_guard", "far_sentinel", "tie_dense"]
 
 
 @pytest.mark.parametrize("name", INSTANCES)
@@ -143,6 +147,10 @@ def test_windowed_plain_matches_jax(name):
     np.testing.assert_array_equal(got[2], want[2])
     n = len(inst[0])
     assert (want[1][0, :n] >= 0).any()      # some fragment chains
+    if name == "tie_dense":
+        # every collector ties: the first index in the window, a far
+        # sentinel where the far term ties with nothing near
+        assert (want[1] == jwin.FAR1).any()
     if name == "repeat_w64":
         # the far term wins after the decoy cloud: sentinels for the host
         assert (want[1] < -1).any()
