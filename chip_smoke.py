@@ -361,6 +361,7 @@ def kernel_phase(dev) -> None:
     from lra_tpu_torch.ops import sdp_blocked as sb
     from lra_tpu_torch.ops import sdp_windowed as sw
     from lra_tpu_torch.ops.gapcost import from_options
+    from lra_tpu_torch.sim import refine_problems
 
     rng = np.random.default_rng(0)
     key = from_options(preset("ccs")).static_key()
@@ -442,22 +443,28 @@ def kernel_phase(dev) -> None:
                 *a[:4], K, M, MM, IND, a[4]), 1)
             log(f"kernel banded_global_traced_packed B=8 K={K} S={S}: "
                 f"exact; {ms:.3f} ms (plain {pms:.1f} ms)")
-    for K in (30, 64):
-        for S in (256, 1024):
-            a = banded_inputs(rng, 8, S, K, dev)
-            got = ak.banded_refine_traced_packed(*a[:4], K, M, MM, IND,
-                                                 kband=a[4])
-            torch.cuda.synchronize()
-            ref = ak.banded_refine_traced_packed_plain(*a[:4], K, M, MM, IND,
-                                                       a[4])
-            torch.cuda.synchronize()
-            exact(f"banded_refine_traced_packed K={K} S={S}", got, ref)
-            ms = cuda_ms(lambda: ak.banded_refine_traced_packed(
-                *a[:4], K, M, MM, IND, kband=a[4]), 5)
-            pms = cuda_ms(lambda: ak.banded_refine_traced_packed_plain(
-                *a[:4], K, M, MM, IND, a[4]), 1)
-            log(f"kernel banded_refine_traced_packed B=8 K={K} S={S}: "
-                f"exact; {ms:.3f} ms (plain {pms:.1f} ms)")
+    # K5: banded_inputs at K 30 and 64; then sim.refine_problems (indels
+    # of 1-6 bases, the edge rows) at every K tier, off-tier K (100, 700,
+    # 1023) and S 16-2048, B no multiple of the problems a block holds
+    k5 = [(banded_inputs(rng, 8, S, K, dev), K)
+          for K in (30, 64) for S in (256, 1024)]
+    for B, S, K in ((13, 16, 30), (64, 64, 30), (13, 128, 64),
+                    (13, 256, 128), (13, 200, 100), (9, 512, 256),
+                    (9, 1024, 512), (7, 2048, 700), (7, 2048, 1023)):
+        k5.append(([torch.from_numpy(x).to(dev) for x in
+                    refine_problems(rng, B, S, K)], K))
+    for a, K in k5:
+        B, S = a[0].shape
+        got = ak.banded_refine_traced_packed(*a[:4], K, M, MM, IND,
+                                             kband=a[4])
+        torch.cuda.synchronize()
+        ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
+            *a[:4], K, M, MM, IND, a[4]))
+        exact(f"banded_refine_traced_packed B={B} K={K} S={S}", got, ref)
+        ms = cuda_ms(lambda: ak.banded_refine_traced_packed(
+            *a[:4], K, M, MM, IND, kband=a[4]), 5)
+        log(f"kernel banded_refine_traced_packed B={B} K={K} S={S} "
+            f"{ak.refine_plan(K)}: exact; {ms:.3f} ms (plain {pms:.1f} ms)")
     K = 30
     for S in (64, 512, 2048):
         a = banded_inputs(rng, 64, S, K, dev)
@@ -522,6 +529,7 @@ class Recorder:
     def __init__(self):
         self.best: dict = {}
         self.windowed: dict = {}    # path label: K7's largest input there
+        self.refine: dict = {}      # path label: K5's largest input there
         self.path = None
         self.saved = []
 
@@ -557,6 +565,8 @@ class Recorder:
             keep = [(self.best, name)]
             if name == "chain_scores_windowed":
                 keep.append((self.windowed, self.path))
+            if name == "banded_refine_traced_packed":
+                keep.append((self.refine, self.path))
             for store, k in keep:
                 if work > store.get(k, (-1,))[0]:
                     store[k] = (work, [x.clone() if hasattr(x, "clone")
@@ -1047,6 +1057,40 @@ def windowed_paths_phase(rec) -> None:
         sw.CLUSTER = keep
 
 
+def refine_paths_phase(rec) -> None:
+    """K5 against its twin on the largest input each path gave it
+    (exact), timed whole and with the traceback skipped (the forward
+    rows alone; ops/affine_kernel._refine_cuda(walk=False), a launch the
+    main path never makes), each beside its launch plan."""
+    import torch
+
+    from lra_tpu_torch.ops import affine_kernel as ak
+
+    if not rec.refine:
+        raise AssertionError("no main-path call of banded_refine_traced_"
+                             "packed recorded")
+    for label, (_, args, kw) in rec.refine.items():
+        q, t, qlen, tlen, K = args[:5]
+        kband = kw["kband"]
+        fn = lambda: ak.banded_refine_traced_packed(q, t, qlen, tlen, K,
+                                                    *args[5:8], kband=kband)
+        got = fn()
+        torch.cuda.synchronize()
+        ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
+            q, t, qlen, tlen, K, *args[5:8], kband))
+        exact(f"banded_refine_traced_packed [{label}] (main-path input)",
+              got, ref)
+        ms = cuda_ms(fn, 10)
+        fwd = cuda_ms(lambda: ak._refine_cuda(q, t, qlen, tlen, kband, K,
+                                              *args[5:8], walk=False), 10)
+        rows = int((tlen.clamp(max=t.shape[1]) + 1).sum())
+        log(f"K5 [{label}] main-path input B={q.shape[0]} S={q.shape[1]} "
+            f"K={K} ({rows} DP rows, {int((qlen > 0).sum())} problems with "
+            f"qlen > 0) {ak.refine_plan(K)}: exact; {ms:.4f} ms, forward "
+            f"rows alone {fwd:.4f} ms, walk {ms - fwd:.4f} ms (plain "
+            f"{pms:.1f} ms)")
+
+
 def cpu_parity(work, all_lines) -> None:
     """The first reads (16 CCS, 4 ONT and CLR) on device="cpu" (plain
     twins) and on "cuda": SAM lines byte-equal to each other and to the
@@ -1203,6 +1247,7 @@ def main() -> int:
     chain_mask_phase(mixes["ccs use_pallas=True"].sdp2, work["ccs"][3], rec,
                      launches)
     rows = main_path_kernels(rec, launches)
+    refine_paths_phase(rec)
     windowed_paths_phase(rec)
     log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
     cpu_parity(work, all_lines)

@@ -14,9 +14,12 @@
 // plane as banded_global_traced_packed.
 //
 // Design: as banded_global.cu — one CTA per problem, two rows of S and D
-// in shared memory, int8 planes in a global scratch [T+1, band], both
-// in-row closures from one two-array block scan, thread 0 walks back.
-// Bound: latency (per-row barriers, then one dependent load per op).
+// in shared memory, int8 planes in a global scratch [T+1, P] (pitch P:
+// the band rounded up to 16 bytes), both in-row closures from one
+// two-array block scan.  Warp 0 walks back over chunks of R plane rows
+// staged in shared memory with 16-byte cp.async copies, the next chunk in
+// flight while lane 0 walks the current one.
+// Bound: latency (per-row barriers).
 
 #include "banded_common.cuh"
 
@@ -27,6 +30,97 @@ using namespace lra;
 constexpr int REF_DELC = 4, REF_INSC = 5;
 constexpr int DEL_OPEN_BIT = 8, INS_OPEN_BIT = 16;
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Rows [lo, lo + n) of a plane (pitch P bytes, 16-byte aligned) into
+// shared memory, one warp, 16-byte copies; one commit group.
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const int8_t* pl,
+                                           int lo, int n, int P, int lane) {
+  const int nv = n * P / 16;
+  const int8_t* src = pl + (size_t)lo * P;
+  for (int v = lane; v < nv; v += 32) cp_async16(dst + 16 * v, src + 16 * v);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The lane-aware traceback (lra_tpu _traceback_refine_device) by one
+// warp: lane 0 walks from (qlen, tlen) over chunks of R plane rows in
+// shared memory (buf: 2 * R * P bytes) while the warp stages the next
+// chunk; ops packed 2 bits each into out[0, L/4), zero after the end.
+// OFF(d) is the byte of band cell d within a plane row.
+template <class Off>
+__device__ void walk_back(const int8_t* pl, uint8_t* buf, uint8_t* o,
+                          int ql, int tl, int T, int K, int band, int P,
+                          int R, int L, Off off) {
+  constexpr int MAIN = 0, DEL = 1, INS = 2;
+  const int lane = threadIdx.x & 31;
+  int i = ql, j = tl, ln = MAIN, s = 0;
+  unsigned byte = 0;
+  bool active = true;
+  int lo = max(0, min(tl, T) - R + 1);
+  int cur = 0;
+  stage_rows(buf, pl, lo, min(tl, T) - lo + 1, P, lane);
+  for (;;) {
+    const int nlo = max(0, lo - R);
+    if (lo > 0) stage_rows(buf + (cur ^ 1) * R * P, pl, nlo, lo - nlo, P,
+                           lane);
+    if (lo > 0) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      const int8_t* rows = (const int8_t*)(buf + cur * R * P);
+      while (active && s < L) {
+        const int d = i - j + K;
+        const bool ok = i >= 0 && j >= 0 && d >= 0 && d < band;
+        const int row = min(j, T);
+        if (ok && row < lo) break;  // the walk enters the next chunk
+        const int p = ok ? (int)rows[(row - lo) * P + off(d)] : -1;
+        const int code = p & 7;
+        const bool rail = p < 0;
+        const bool act_del =
+            !rail && (ln == DEL || (ln == MAIN && code == REF_DELC));
+        const bool act_ins =
+            !rail && (ln == INS || (ln == MAIN && code == REF_INSC));
+        const bool plain = ln == MAIN && !rail && code != REF_DELC &&
+                           code != REF_INSC && code != DONE;
+        const int a = act_del ? DOWN : (act_ins ? LEFT : (plain ? code : -1));
+        ln = act_del ? ((p & DEL_OPEN_BIT) ? MAIN : DEL)
+                     : (act_ins ? ((p & INS_OPEN_BIT) ? MAIN : INS) : MAIN);
+        active = a >= 0;
+        if (active) {
+          i -= (a == DIAG || a == LEFT);
+          j -= (a == DIAG || a == DOWN);
+          byte |= (unsigned)a << (2 * (s & 3));
+          if ((s & 3) == 3) {
+            o[s >> 2] = (uint8_t)byte;
+            byte = 0;
+          }
+          ++s;
+        }
+      }
+    }
+    const bool more = __shfl_sync(0xffffffffu, active && s < L, 0);
+    if (!more || lo == 0) break;
+    __syncwarp();
+    lo = nlo;
+    cur ^= 1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // the step that ended the walk (or the last full byte) and the rest
+  int zs = (s + 3) >> 2;
+  if (lane == 0 && (s & 3)) o[s >> 2] = (uint8_t)byte;
+  zs = __shfl_sync(0xffffffffu, zs, 0);
+  for (int k = zs + lane; k < L / 4; k += 32) o[k] = 0;
+  __syncwarp();
+}
+
+struct Linear {
+  __device__ int operator()(int d) const { return d; }
+};
+
 template <int CPT>
 __global__ void __launch_bounds__(1024)
 banded_refine_kernel(const int8_t* __restrict__ q,
@@ -36,7 +130,7 @@ banded_refine_kernel(const int8_t* __restrict__ q,
                      const int* __restrict__ kband, int Q, int T, int K,
                      float m, float mm, float indel,
                      int8_t* __restrict__ planes, uint8_t* __restrict__ out,
-                     int L) {
+                     int L, int P, int R, int walk) {
   extern __shared__ float rows[];  // S, D: two rows each of band + 1
   __shared__ float s_warp[64];
   const int b = blockIdx.x;
@@ -45,7 +139,7 @@ banded_refine_kernel(const int8_t* __restrict__ q,
   const int8_t* tb = t + (size_t)b * T;
   const int ql = qlen[b], tl = tlen[b], kb = kband[b];
   const float open = 2.f * indel + 1.f;
-  int8_t* pl = planes + (size_t)b * (T + 1) * band;
+  int8_t* pl = planes + (size_t)b * (T + 1) * P;
   float* Sp = rows;
   float* Sc = rows + (band + 1);
   float* Dp = rows + 2 * (band + 1);
@@ -114,7 +208,7 @@ banded_refine_kernel(const int8_t* __restrict__ q,
       }
     }
     __syncthreads();
-    int8_t* prow = pl + (size_t)j * band;
+    int8_t* prow = pl + (size_t)j * P;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int d = threadIdx.x * CPT + c;
@@ -135,73 +229,48 @@ banded_refine_kernel(const int8_t* __restrict__ q,
   }
   __syncthreads();
 
-  // lane-aware traceback (lra_tpu _traceback_refine_device)
-  if (threadIdx.x == 0) {
-    constexpr int MAIN = 0, DEL = 1, INS = 2;
-    uint8_t* o = out + (size_t)b * (L / 4);
-    int i = ql, j = tl, lane = MAIN;
-    bool active = true;
-    unsigned byte = 0;
-    for (int s = 0; s < L; ++s) {
-      int a = -1;
-      if (active) {
-        const int d = i - j + K;
-        const bool ok = i >= 0 && j >= 0 && d >= 0 && d < band;
-        const int p = ok ? (int)pl[(size_t)min(j, T) * band + d] : -1;
-        const int code = p & 7;
-        const bool rail = p < 0 || !ok;
-        const bool act_del =
-            !rail && (lane == DEL || (lane == MAIN && code == REF_DELC));
-        const bool act_ins =
-            !rail && (lane == INS || (lane == MAIN && code == REF_INSC));
-        const bool plain = lane == MAIN && !rail && code != REF_DELC &&
-                           code != REF_INSC && code != DONE;
-        a = act_del ? DOWN : (act_ins ? LEFT : (plain ? code : -1));
-        lane = act_del ? ((p & DEL_OPEN_BIT) ? MAIN : DEL)
-                       : (act_ins ? ((p & INS_OPEN_BIT) ? MAIN : INS) : MAIN);
-      }
-      active = a >= 0;
-      if (active) {
-        i -= (a == DIAG || a == LEFT);
-        j -= (a == DIAG || a == DOWN);
-        byte |= (unsigned)a << (2 * (s & 3));
-      }
-      if ((s & 3) == 3) {
-        o[s >> 2] = (uint8_t)byte;
-        byte = 0;
-      }
-    }
-  }
+  // lane-aware traceback over staged rows; the plane's global writes are
+  // ordered before warp 0's cp.async reads by the barrier above
+  if (walk && threadIdx.x < 32)
+    walk_back(pl, (uint8_t*)(rows + 4 * (band + 1)), out + (size_t)b * (L / 4),
+              ql, tl, T, K, band, P, R, L, Linear());
 }
 
 template <int CPT>
 int launch(const void* q, const void* t, const void* qlen, const void* tlen,
            const void* kband, int B, int Q, int T, int K, int m, int mm,
-           int indel, void* planes, void* out, cudaStream_t stream) {
+           int indel, void* planes, void* out, int P, int R, int smem,
+           int walk, cudaStream_t stream) {
   const int band = 2 * K + 1;
   const int threads = ((band + CPT - 1) / CPT + 31) / 32 * 32;
-  const size_t smem = 4 * (band + 1) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      banded_refine_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
   banded_refine_kernel<CPT><<<B, threads, smem, stream>>>(
       (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
       (const int*)kband, Q, T, K, (float)m, (float)mm, (float)indel,
-      (int8_t*)planes, (uint8_t*)out, Q + T);
+      (int8_t*)planes, (uint8_t*)out, Q + T, P, R, walk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, t: int8 [B, Q], [B, T]; qlen, tlen, kband: int32 [B];
-// planes: int8 scratch [B, T+1, 2K+1]; out: uint8 [B, (Q+T)/4].
+// planes: int8 scratch [B, T+1, P]; out: uint8 [B, (Q+T)/4].  P, R and
+// smem from ops/affine_kernel.py:refine_plan; walk = 0 skips the
+// traceback (a timing of the forward rows alone; out is not written).
 extern "C" int lra_banded_refine_traced_packed(
     const void* q, const void* t, const void* qlen, const void* tlen,
     const void* kband, void* planes, void* out, int B, int Q, int T, int K,
-    int m, int mm, int indel, void* stream) {
+    int m, int mm, int indel, int P, int R, int smem, int walk,
+    void* stream) {
   const int band = 2 * K + 1;
   if (band <= 1024)
     return launch<1>(q, t, qlen, tlen, kband, B, Q, T, K, m, mm, indel,
-                     planes, out, (cudaStream_t)stream);
+                     planes, out, P, R, smem, walk, (cudaStream_t)stream);
   if (band <= 2048)
     return launch<2>(q, t, qlen, tlen, kband, B, Q, T, K, m, mm, indel,
-                     planes, out, (cudaStream_t)stream);
+                     planes, out, P, R, smem, walk, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

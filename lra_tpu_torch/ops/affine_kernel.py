@@ -466,11 +466,51 @@ def banded_refine_traced_packed(q, t, qlen, tlen, K, m, mm, indel,
                          "of 4")
     kband = _kband_or_full(kband, q.shape[0], K, q.device)
     if q.device.type == "cuda":
-        return _banded_cuda("banded_refine_traced_packed", "banded_refine",
-                            "lra_banded_refine_traced_packed", q, t, qlen,
-                            tlen, kband, K, m, mm, indel)
+        return _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel)
     return banded_refine_traced_packed_plain(q, t, qlen, tlen, K, m, mm,
                                              indel, kband)
+
+
+def refine_plan(K: int) -> dict:
+    """Launch plan of csrc/banded_refine.cu for a band of 2K+1 cells:
+    the plane pitch P (bytes per plane row, a multiple of 16), R (plane
+    rows per traceback chunk in shared memory) and the dynamic shared
+    memory in bytes."""
+    band = 2 * K + 1
+    P = (band + 15) // 16 * 16
+    R = 16
+    smem = 16 * (band + 1) + 2 * R * P
+    return {"P": P, "R": R, "smem": smem}
+
+
+_REFINE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+
+
+def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True):
+    """K5 on the card.  walk=False skips the traceback (a timing of the
+    forward rows alone; the output is then not written)."""
+    B, Q = q.shape
+    T = t.shape[1]
+    if 2 * K + 1 > 2048:
+        raise ValueError(f"banded_refine_traced_packed kernel: band "
+                         f"{2 * K + 1} > 2048")
+    _ext.check("q", q, torch.int8, (B, Q))
+    _ext.check("t", t, torch.int8, (B, T))
+    for name, x in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
+        _ext.check(name, x, torch.int32, (B,))
+    plan = refine_plan(K)
+    scratch = torch.empty((B, T + 1, plan["P"]), dtype=torch.int8,
+                          device=q.device)
+    out = torch.empty((B, (Q + T) // 4), dtype=torch.uint8, device=q.device)
+    if B == 0:
+        return out
+    p = _ext.ptr
+    _ext.launch("banded_refine_traced_packed", "banded_refine",
+                "lra_banded_refine_traced_packed", _REFINE_ARGS, p(q), p(t),
+                p(qlen), p(tlen), p(kband), p(scratch), p(out), B, Q, T, K,
+                int(m), int(mm), int(indel), plan["P"], plan["R"],
+                plan["smem"], int(walk))
+    return out
 
 
 def banded_refine_np(q, t, qlen, tlen, K, m, mm, indel, kband):

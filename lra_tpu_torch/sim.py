@@ -144,3 +144,36 @@ def tie_dense_chain_arrays(rng, n_roots: int, n_coll: int) -> tuple:
     lane2 = np.concatenate([kind != 0, np.ones(n_coll, bool)])
     return (qS, qS + 50, tS, tS + 50, score, lane1, lane2,
             np.arange(len(qS), dtype=np.int64), 0)
+
+
+def refine_problems(rng, B: int, S: int, K: int) -> tuple:
+    """A [B, S] bucket of indel-refine problems for K5 (q, t int8;
+    qlen, tlen, kband int32): t random, q = t with SNPs and up to two
+    indels of 1-6 bases (so the affine del/ins lanes open), lengths
+    drifting within the band.  The first rows are the edges: the
+    bucket's pad row (qlen = tlen = kband = 0); qlen = tlen = 1 with
+    kband 0; qlen 1 against tlen 1 + K with kband K; a full S x S
+    problem with kband K; tlen 1; kband exactly |qlen - tlen|.  The other
+    rows mostly end below S, so plane rows above tlen are never
+    written."""
+    t = rng.integers(0, 4, (B, S)).astype(np.int8)
+    q = t.copy()
+    for b in range(B):
+        for _ in range(int(rng.integers(0, max(2, S // 24)))):
+            p = int(rng.integers(0, S))
+            q[b, p] = (q[b, p] + 1) % 4
+        for _ in range(int(rng.integers(0, 3))):
+            p = int(rng.integers(0, S))
+            q[b, p:] = np.roll(q[b, p:], int(rng.integers(-6, 7)))
+    qlen = rng.integers(max(1, S // 2), S + 1, B)
+    drift = min(K, 12)
+    tlen = np.clip(qlen + rng.integers(-drift, drift + 1, B), 1, S)
+    kb = np.minimum(np.abs(qlen - tlen) + rng.integers(0, K + 1, B), K)
+    edges = [(0, 0, 0), (1, 1, 0), (1, min(S, 1 + K), K), (S, S, K),
+             (min(S, 1 + K // 2), 1, K), (max(1, S // 2),
+                                         min(S, S // 2 + min(K, 5)), 0)]
+    for r, (ql, tl, k) in enumerate(edges[:B]):
+        qlen[r], tlen[r], kb[r] = ql, tl, k
+    kb = np.maximum(kb, np.abs(qlen - tlen))
+    return (q, t, qlen.astype(np.int32), tlen.astype(np.int32),
+            kb.astype(np.int32))

@@ -19,7 +19,8 @@ from lra_tpu_torch.ops import one_gap as og
 from lra_tpu_torch.ops import sdp_blocked as sb
 from lra_tpu_torch.ops import sdp_windowed as sw
 from lra_tpu_torch.ops.gapcost import from_options
-from lra_tpu_torch.sim import contig_chain_arrays, tie_dense_chain_arrays
+from lra_tpu_torch.sim import (contig_chain_arrays, refine_problems,
+                               tie_dense_chain_arrays)
 
 torch.set_num_threads(2)
 M, MM, IND = 4, -3, -4
@@ -75,6 +76,28 @@ def test_chain_scores_blocked_kernel_matches_plain(cuda_device, B, N):
     torch.cuda.synchronize()
     assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K", [
+    (13, 16, 30), (8, 64, 30), (13, 128, 64), (13, 256, 128),
+    (13, 200, 100), (9, 512, 256), (9, 1024, 512), (7, 2048, 700),
+    (7, 2048, 1023)])
+def test_refine_kernel_matches_plain(cuda_device, B, S, K):
+    """K5 at every K tier (30, 64, 128, 256, 512), off-tier K (100, 700,
+    1023: the widest band the wrapper takes), S 16-2048, B no multiple
+    of the problems a block holds, and the edge problems of
+    sim.refine_problems: packed ops exactly equal to the plain twin."""
+    q, t, ql, tl, kb = [torch.from_numpy(a).to(cuda_device) for a in
+                        refine_problems(np.random.default_rng(S + K), B, S,
+                                        K)]
+    got = ak.banded_refine_traced_packed(q, t, ql, tl, K, M, MM, IND,
+                                         kband=kb)
+    ref = ak.banded_refine_traced_packed_plain(q, t, ql, tl, K, M, MM, IND,
+                                               kb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool((ref != 0).any())
 
 
 @pytest.mark.cuda
