@@ -11,7 +11,9 @@ failure.  Phases:
    kernel source;
 2. kernels: each hand-written kernel against its plain torch twin on
    seeded inputs at a spread of shapes — exact equality — with median
-   CUDA-event times (K6 at (K, D) buckets up to 2052 lanes in both
+   CUDA-event times (K5 at every K tier, off-tier K up to 1023, S 16 to
+   2048 and the edge problems of sim.refine_problems, with each of its
+   launch plans; K6 at (K, D) buckets up to 2052 lanes in both
    closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
    at N = 1280..40960 with W = 64..16384, B = 1..3, on an instance where
    the far term wins and on tie-dense instances), K7's cluster size and
@@ -40,8 +42,10 @@ failure.  Phases:
    need_full=False through solve_problems; best_chain and chain_vmax
    must equal the need_full=True results;
 5. the recorded main-path inputs: each kernel against its plain twin
-   again (exact), timed, beside its bound; K7 on the largest input of
-   CONTIG (b) and of (c), exact and timed with clusters of 8 and 16 CTAs;
+   again (exact), timed, beside its bound; K5 on the largest input of
+   each path, exact and timed with each launch plan, whole and with the
+   walk skipped; K7 on the largest input of CONTIG (b) and of (c), exact
+   and timed with clusters of 8 and 16 CTAs;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
    device="cuda": the first 16 CCS reads in both configurations, the
    first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
@@ -461,10 +465,16 @@ def kernel_phase(dev) -> None:
         ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
             *a[:4], K, M, MM, IND, a[4]))
         exact(f"banded_refine_traced_packed B={B} K={K} S={S}", got, ref)
+        for name, plan in refine_variants(ak, K, B):
+            got = ak._refine_cuda(*a[:4], a[4], K, M, MM, IND, plan=plan)
+            torch.cuda.synchronize()
+            exact(f"banded_refine_traced_packed B={B} K={K} S={S} {name}",
+                  got, ref)
         ms = cuda_ms(lambda: ak.banded_refine_traced_packed(
             *a[:4], K, M, MM, IND, kband=a[4]), 5)
         log(f"kernel banded_refine_traced_packed B={B} K={K} S={S} "
-            f"{ak.refine_plan(K)}: exact; {ms:.3f} ms (plain {pms:.1f} ms)")
+            f"{plan_str(ak.refine_plan(K, B))}: exact, and with each "
+            f"launch plan; {ms:.3f} ms (plain {pms:.1f} ms)")
     K = 30
     for S in (64, 512, 2048):
         a = banded_inputs(rng, 64, S, K, dev)
@@ -1057,11 +1067,28 @@ def windowed_paths_phase(rec) -> None:
         sw.CLUSTER = keep
 
 
+def refine_variants(ak, K, B) -> list:
+    """K5's launch plans for a bucket, by name, beside the wrapper's
+    choice: the same plan on the plain grid, and on the persistent grid
+    one and several (8 / WP) problems per block."""
+    chosen = ak.refine_plan(K, B, ak._sm_count(0))
+    return [("plain grid", dict(chosen, persistent=False)),
+            ("one problem per block", ak.refine_plan(K, B, ppc=1)),
+            ("8 / WP problems per block", ak.refine_plan(K, 1 << 30))]
+
+
+def plan_str(plan) -> str:
+    return ("CPT {CPT} WP {WP} PPC {PPC} P {P} smem {smem} "
+            "{grid}").format(grid="persistent" if plan["persistent"]
+                             else "plain grid", **plan)
+
+
 def refine_paths_phase(rec) -> None:
     """K5 against its twin on the largest input each path gave it
     (exact), timed whole and with the traceback skipped (the forward
     rows alone; ops/affine_kernel._refine_cuda(walk=False), a launch the
-    main path never makes), each beside its launch plan."""
+    main path never makes), with the wrapper's launch plan and with each
+    alternative of refine_variants, in two rounds of turns."""
     import torch
 
     from lra_tpu_torch.ops import affine_kernel as ak
@@ -1072,23 +1099,32 @@ def refine_paths_phase(rec) -> None:
     for label, (_, args, kw) in rec.refine.items():
         q, t, qlen, tlen, K = args[:5]
         kband = kw["kband"]
-        fn = lambda: ak.banded_refine_traced_packed(q, t, qlen, tlen, K,
-                                                    *args[5:8], kband=kband)
-        got = fn()
-        torch.cuda.synchronize()
+        B = q.shape[0]
         ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
             q, t, qlen, tlen, K, *args[5:8], kband))
-        exact(f"banded_refine_traced_packed [{label}] (main-path input)",
-              got, ref)
-        ms = cuda_ms(fn, 10)
-        fwd = cuda_ms(lambda: ak._refine_cuda(q, t, qlen, tlen, kband, K,
-                                              *args[5:8], walk=False), 10)
+        chosen = ak.refine_plan(K, B, ak._sm_count(0))
+        plans = [("chosen", chosen)] + refine_variants(ak, K, B)
+        res = {name: [] for name, _ in plans}
+        for _ in range(2):
+            for name, plan in plans:
+                fn = lambda: ak._refine_cuda(q, t, qlen, tlen, kband, K,
+                                             *args[5:8], plan=plan)
+                fwd = lambda: ak._refine_cuda(q, t, qlen, tlen, kband, K,
+                                              *args[5:8], walk=False,
+                                              plan=plan)
+                got = fn()
+                torch.cuda.synchronize()
+                exact(f"banded_refine_traced_packed [{label}] {name} "
+                      "(main-path input)", got, ref)
+                res[name].append((cuda_ms(fn, 10), cuda_ms(fwd, 10)))
         rows = int((tlen.clamp(max=t.shape[1]) + 1).sum())
-        log(f"K5 [{label}] main-path input B={q.shape[0]} S={q.shape[1]} "
-            f"K={K} ({rows} DP rows, {int((qlen > 0).sum())} problems with "
-            f"qlen > 0) {ak.refine_plan(K)}: exact; {ms:.4f} ms, forward "
-            f"rows alone {fwd:.4f} ms, walk {ms - fwd:.4f} ms (plain "
-            f"{pms:.1f} ms)")
+        log(f"K5 [{label}] main-path input B={B} S={q.shape[1]} K={K} "
+            f"({rows} DP rows, {int((qlen > 0).sum())} problems with "
+            f"qlen > 0): exact with every plan; plain twin {pms:.1f} ms")
+        for name, plan in plans:
+            log(f"  K5 [{label}] {name} ({plan_str(plan)}): " + ", ".join(
+                f"{ms:.4f} ms (forward rows alone {f:.4f}, walk "
+                f"{ms - f:.4f})" for ms, f in res[name]))
 
 
 def cpu_parity(work, all_lines) -> None:

@@ -25,6 +25,7 @@ tracebacks) are the host path's.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -471,24 +472,55 @@ def banded_refine_traced_packed(q, t, qlen, tlen, K, m, mm, indel,
                                              indel, kband)
 
 
-def refine_plan(K: int) -> dict:
-    """Launch plan of csrc/banded_refine.cu for a band of 2K+1 cells:
-    the plane pitch P (bytes per plane row, a multiple of 16), R (plane
-    rows per traceback chunk in shared memory) and the dynamic shared
-    memory in bytes."""
+# K5's grid: True, one block per SM slot, each group of warps taking the
+# next problem from an atomic counter; False, one problem per group
+PERSISTENT = True
+_REFINE_CPT = (2, 5, 9)     # cells per lane of the kernel's instances
+_REFINE_CTA_WARPS = 8       # warps per block when a bucket fills the card
+_REFINE_ROWS = 16           # plane rows per traceback chunk
+SMEM_MAX = 232448           # shared memory a block may use on sm_90
+
+
+def refine_plan(K: int, B: int | None = None, sms: int = 132,
+                ppc: int | None = None) -> dict:
+    """Launch plan of csrc/banded_refine.cu for B problems with a band of
+    2K+1 cells on a card of `sms` SMs: CPT cells per lane, WP warps per
+    problem (the fewest: CPT 9 once one warp's 288 cells hold the band;
+    WP * 32 * CPT >= band), PPC problems per block, the plane pitch P =
+    32 * CPT * WP bytes, R plane rows per traceback chunk, the dynamic
+    shared memory in bytes (per problem: two chunks, the WP > 1 exchange
+    slots, the problem index), threads per block and the grid mode.
+
+    A bucket that gives every SM a block of 8 warps gets 8 / WP problems
+    per block; a smaller one (B = None counts as small) one problem per
+    block, so that its blocks spread over all SMs.  `ppc` overrides."""
     band = 2 * K + 1
-    P = (band + 15) // 16 * 16
-    R = 16
-    smem = 16 * (band + 1) + 2 * R * P
-    return {"P": P, "R": R, "smem": smem}
+    cpt = next((c for c in _REFINE_CPT if 32 * c >= band), _REFINE_CPT[-1])
+    wp = -(-band // (32 * cpt))
+    if ppc is None:
+        full = B is not None and B * wp >= _REFINE_CTA_WARPS * sms
+        ppc = max(1, _REFINE_CTA_WARPS // wp) if full else 1
+    P = 32 * cpt * wp
+    R = _REFINE_ROWS
+    group = 2 * R * P + (64 * wp if wp > 1 else 0) + 16
+    return {"CPT": cpt, "WP": wp, "PPC": ppc, "P": P, "R": R,
+            "smem": ppc * group, "threads": 32 * wp * ppc,
+            "persistent": PERSISTENT}
 
 
-_REFINE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True):
-    """K5 on the card.  walk=False skips the traceback (a timing of the
-    forward rows alone; the output is then not written)."""
+_REFINE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
+
+
+def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
+                 plan=None):
+    """K5 on the card with refine_plan's plan for this bucket (or the
+    one given).  walk=False skips the traceback (a timing of the forward
+    rows alone; the output is then not written)."""
     B, Q = q.shape
     T = t.shape[1]
     if 2 * K + 1 > 2048:
@@ -498,18 +530,21 @@ def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True):
     _ext.check("t", t, torch.int8, (B, T))
     for name, x in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
         _ext.check(name, x, torch.int32, (B,))
-    plan = refine_plan(K)
-    scratch = torch.empty((B, T + 1, plan["P"]), dtype=torch.int8,
-                          device=q.device)
     out = torch.empty((B, (Q + T) // 4), dtype=torch.uint8, device=q.device)
     if B == 0:
         return out
+    if plan is None:
+        plan = refine_plan(K, B, _sm_count(q.device.index or 0))
+    scratch = torch.empty((B, T + 1, plan["P"]), dtype=torch.int8,
+                          device=q.device)
+    counter = torch.empty(1, dtype=torch.int32, device=q.device)
     p = _ext.ptr
     _ext.launch("banded_refine_traced_packed", "banded_refine",
                 "lra_banded_refine_traced_packed", _REFINE_ARGS, p(q), p(t),
-                p(qlen), p(tlen), p(kband), p(scratch), p(out), B, Q, T, K,
-                int(m), int(mm), int(indel), plan["P"], plan["R"],
-                plan["smem"], int(walk))
+                p(qlen), p(tlen), p(kband), p(scratch), p(out), p(counter),
+                B, Q, T, K, int(m), int(mm), int(indel), plan["CPT"],
+                plan["WP"], plan["PPC"], plan["P"], plan["R"], plan["smem"],
+                int(plan["persistent"]), int(walk))
     return out
 
 

@@ -87,17 +87,33 @@ def test_refine_kernel_matches_plain(cuda_device, B, S, K):
     """K5 at every K tier (30, 64, 128, 256, 512), off-tier K (100, 700,
     1023: the widest band the wrapper takes), S 16-2048, B no multiple
     of the problems a block holds, and the edge problems of
-    sim.refine_problems: packed ops exactly equal to the plain twin."""
+    sim.refine_problems, through the wrapper and with each launch plan
+    forced: packed ops exactly equal to the plain twin."""
     q, t, ql, tl, kb = [torch.from_numpy(a).to(cuda_device) for a in
                         refine_problems(np.random.default_rng(S + K), B, S,
                                         K)]
-    got = ak.banded_refine_traced_packed(q, t, ql, tl, K, M, MM, IND,
-                                         kband=kb)
     ref = ak.banded_refine_traced_packed_plain(q, t, ql, tl, K, M, MM, IND,
                                                kb)
+    got = ak.banded_refine_traced_packed(q, t, ql, tl, K, M, MM, IND,
+                                         kband=kb)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert bool((ref != 0).any())
+    # one and several problems per block, each on the persistent and the
+    # plain grid
+    keep = ak.PERSISTENT
+    try:
+        for persistent in (True, False):
+            ak.PERSISTENT = persistent
+            for ppc in (1, None):
+                plan = ak.refine_plan(K, 16384 if ppc is None else B,
+                                      ppc=ppc)
+                got = ak._refine_cuda(q, t, ql, tl, kb, K, M, MM, IND,
+                                      plan=plan)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), plan
+    finally:
+        ak.PERSISTENT = keep
 
 
 @pytest.mark.cuda
