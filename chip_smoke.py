@@ -465,7 +465,7 @@ def kernel_phase(dev) -> None:
         ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
             *a[:4], K, M, MM, IND, a[4]))
         exact(f"banded_refine_traced_packed B={B} K={K} S={S}", got, ref)
-        for name, plan in refine_variants(ak, K, B):
+        for name, plan in refine_variants(ak, K):
             got = ak._refine_cuda(*a[:4], a[4], K, M, MM, IND, plan=plan)
             torch.cuda.synchronize()
             exact(f"banded_refine_traced_packed B={B} K={K} S={S} {name}",
@@ -1067,28 +1067,26 @@ def windowed_paths_phase(rec) -> None:
         sw.CLUSTER = keep
 
 
-def refine_variants(ak, K, B) -> list:
-    """K5's launch plans for a bucket, by name, beside the wrapper's
-    choice: the same plan on the plain grid, and on the persistent grid
-    one and several (8 / WP) problems per block."""
-    chosen = ak.refine_plan(K, B, ak._sm_count(0))
-    return [("plain grid", dict(chosen, persistent=False)),
-            ("one problem per block", ak.refine_plan(K, B, ppc=1)),
-            ("8 / WP problems per block", ak.refine_plan(K, 1 << 30))]
+def refine_variants(ak, K) -> list:
+    """K5's two launch plans for a band of 2K+1 cells, by name: that of a
+    bucket too small to fill the card (one problem per block, traceback
+    chunks of up to 64 rows) and that of a full one (8 / WP problems per
+    block, 16-row chunks; 1 << 20 problems fill any card)."""
+    return [("small-bucket plan", ak.refine_plan(K, 1)),
+            ("full-bucket plan", ak.refine_plan(K, 1 << 20))]
 
 
 def plan_str(plan) -> str:
-    return ("CPT {CPT} WP {WP} PPC {PPC} P {P} smem {smem} "
-            "{grid}").format(grid="persistent" if plan["persistent"]
-                             else "plain grid", **plan)
+    return "CPT {CPT} WP {WP} PPC {PPC} P {P} R {R} smem {smem}".format(
+        **plan)
 
 
 def refine_paths_phase(rec) -> None:
     """K5 against its twin on the largest input each path gave it
     (exact), timed whole and with the traceback skipped (the forward
     rows alone; ops/affine_kernel._refine_cuda(walk=False), a launch the
-    main path never makes), with the wrapper's launch plan and with each
-    alternative of refine_variants, in two rounds of turns."""
+    main path never makes), with each plan of refine_variants (one of
+    them the wrapper's choice for that bucket), in two rounds of turns."""
     import torch
 
     from lra_tpu_torch.ops import affine_kernel as ak
@@ -1102,8 +1100,13 @@ def refine_paths_phase(rec) -> None:
         B = q.shape[0]
         ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
             q, t, qlen, tlen, K, *args[5:8], kband))
+        got = ak.banded_refine_traced_packed(q, t, qlen, tlen, K,
+                                             *args[5:8], kband=kband)
+        torch.cuda.synchronize()
+        exact(f"banded_refine_traced_packed [{label}] (main-path input)",
+              got, ref)
         chosen = ak.refine_plan(K, B, ak._sm_count(0))
-        plans = [("chosen", chosen)] + refine_variants(ak, K, B)
+        plans = refine_variants(ak, K)
         res = {name: [] for name, _ in plans}
         for _ in range(2):
             for name, plan in plans:
@@ -1122,9 +1125,10 @@ def refine_paths_phase(rec) -> None:
             f"({rows} DP rows, {int((qlen > 0).sum())} problems with "
             f"qlen > 0): exact with every plan; plain twin {pms:.1f} ms")
         for name, plan in plans:
-            log(f"  K5 [{label}] {name} ({plan_str(plan)}): " + ", ".join(
-                f"{ms:.4f} ms (forward rows alone {f:.4f}, walk "
-                f"{ms - f:.4f})" for ms, f in res[name]))
+            mark = ", the wrapper's choice" if plan == chosen else ""
+            log(f"  K5 [{label}] {name} ({plan_str(plan)}{mark}): "
+                + ", ".join(f"{ms:.4f} ms (forward rows alone {f:.4f}, "
+                            f"walk {ms - f:.4f})" for ms, f in res[name]))
 
 
 def cpu_parity(work, all_lines) -> None:

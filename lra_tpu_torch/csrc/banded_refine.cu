@@ -10,10 +10,11 @@
 //   D    = max(S[j-1][d+1] + open, D[j-1][d+1])       (del lane)
 //   base = max(S[j-1][d] + sub, S[j-1][d+1] + indel, D)
 //   S    = max(leftclosure(base)[d], prefixmax(base)[d-1] + open)
-// with the i=0 column a rail for j >= 1.  Plane bytes carry the main
-// arrow (bits 0-2, tie order match > ins > del > delClose > insClose) and
-// the del-open (bit 3) / ins-open (bit 4) flags, -1 off the valid cells.
-// Output: the packed op plane of banded_global_traced_packed.
+// with the i=0 column a rail for j >= 1.  Each plane byte holds the tie
+// flags the main arrow is read from (tie order match > ins > del >
+// delClose > insClose), the del-open and ins-open flags and a valid bit
+// (plane_flags).  Output: the packed op plane of
+// banded_global_traced_packed.
 //
 // Bound: operations.  chip_smoke.py's dp_bound counts 18 per band cell
 // of the rows the data needs.  The kernel's row at CPT 9 is about 470
@@ -29,9 +30,8 @@
 //   beyond (2 at K=256, 4 at K=512, up to 8 at K=1023).  A block holds
 //   PPC = 8 / WP problems when the bucket gives every SM a block of 8
 //   warps, else one, so that a small bucket spreads over all SMs.
-//   Persistent grid: each group of WP warps takes the next problem from
-//   an atomic counter (the wrapper's PERSISTENT; otherwise a plain grid
-//   of one problem per group).
+//   Persistent grid: one block per SM slot, each group of WP warps
+//   taking the next problem from an atomic counter.
 // - Row j-1's S[d+1] and D[d+1] come by __shfl_down_sync; the linear
 //   closure and the plain prefix max are a thread-local pass and a
 //   5-step warp scan, both arrays interleaved; row j's left neighbour of
@@ -51,10 +51,14 @@
 //   cell c of lane l at byte 32c + l, so each of a warp's CPT byte stores
 //   per row fills one whole 32-byte sector.
 // - After its rows, warp 0 of the group walks back (walk_back): chunks of
-//   R = 16 plane rows go to shared memory with 16-byte cp.async copies,
-//   the next chunk in flight while lane 0 walks the current one with the
+//   R plane rows go to shared memory with 16-byte cp.async copies, the
+//   next chunk in flight while lane 0 walks the current one with the
 //   reference's lane-aware state machine, step for step; packed bytes go
 //   out as lane 0 completes them, zeros after the end by the whole warp.
+//   R is 16 in a bucket that fills the card (other warps' rows hide the
+//   loads) and up to 64 rows (32 KB) with one problem per block, where
+//   the walk of the longest problem bounds the launch and has to run a
+//   chunk ahead of the plane's reads from device memory.
 //
 // Exactness (the plain twin is bit-exact against lra_tpu; this kernel
 // against the twin):
@@ -73,14 +77,17 @@
 //   twin's NEGF shift-in gives.  The lane after the last (lane 31 of the
 //   last warp) reads NEGF: 32 * CPT * WP is even and band odd, so that
 //   cell is always a pad.
-// - One tie order, in one place: match > ins > del > delClose > insClose,
-//   D's open before extend, I's open compared against the left
-//   neighbour's S + open.
+// - One tie order, in one place (the walk's decode of the plane flags):
+//   match > ins > del > delClose > insClose; D's open before extend; I's
+//   open compared against the left neighbour's S + open.  The forward
+//   rows store each comparison, not the arrow, which moves the arrow's
+//   selects off the half-rate ALU pipe onto the path the walk takes.
 //
 // ptxas (sm_90a, chip_smoke.py logs it): 128 registers at CPT 9 (the
-// __launch_bounds__(256, 2) cap) and at CPT 9 with WP > 1, 92 at CPT 5,
-// 56 at CPT 2; no spills; dynamic shared memory only, PPC * (2 * 16 * P +
-// 16) bytes, plus 64 * WP per problem at WP > 1 (at most 74,256 B).
+// __launch_bounds__(256, 2) cap; a 4-byte spill outside the row loop)
+// and at CPT 9 with WP > 1, 96 at CPT 5, 64 at CPT 2; dynamic shared
+// memory only, PPC * (2 * R * P + 16) bytes, plus 64 * WP per problem at
+// WP > 1 (at most 74,256 B).
 
 #include "banded_common.cuh"
 
@@ -89,7 +96,10 @@ namespace {
 using namespace lra;
 
 constexpr int REF_DELC = 4, REF_INSC = 5;
-constexpr int DEL_OPEN_BIT = 8, INS_OPEN_BIT = 16;
+// plane byte bits (plane_flags)
+constexpr int MATCH_BIT = 1, INS_BIT = 2, DEL_BIT = 4, DELC_BIT = 8;
+constexpr int DEL_OPEN_BIT = 16, INS_OPEN_BIT = 32, VALID_BIT = 64;
+constexpr int DONE_BIT = 128;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -106,6 +116,21 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst, const int8_t* pl,
   const int8_t* src = pl + (size_t)lo * P;
   for (int v = lane; v < nv; v += 32) cp_async16(dst + 16 * v, src + 16 * v);
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ int lds_u8(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return (int)v;
+}
+
+// The main arrow of a plane byte (plane_flags): the first of its match,
+// ins, del and delClose flags, insClose if none; nibble f of the table is
+// the arrow of the flag bits f (DIAG 3 for odd f, LEFT 1, DOWN 2,
+// delClose 4, insClose 5 at f = 0).
+__device__ __forceinline__ int arrow_of(int p) {
+  constexpr unsigned long long TAB = 0x3132313431323135ull;
+  return (int)((TAB >> ((p & 15) << 2)) & 7);
 }
 
 // Byte of band cell d in a plane row: warp segment, then lane-major.
@@ -127,14 +152,17 @@ __device__ __forceinline__ int plane_byte(int d) {
 // One step, as the reference's state machine: in lane DEL or INS, or in
 // MAIN on a delClose / insClose arrow, the step is DOWN / LEFT and the
 // lane stays open unless the cell's open flag closes it; in MAIN a
-// DIAG / LEFT / DOWN arrow is the step; a rail (-1, or outside the band
-// or the matrix) or DONE ends the walk.  The walker keeps the band cell
-// d and its byte, and computes the bytes of d - 1 and d + 1 while the
-// shared-memory load is in flight.
+// DIAG / LEFT / DOWN arrow is the step; a rail (a cell without the valid
+// bit, or outside the band or the matrix) or DONE ends the walk.  The
+// walker keeps the band cell d and its byte, computes the bytes of d - 1
+// and d + 1 while the shared-memory load is in flight, and decodes a
+// step without branches (arrow_of; delClose 4 and insClose 5 map to
+// DOWN 2 and LEFT 1 as 6 - x; the lanes DEL 1 and INS 2 as x - 3).
 template <int CPT, bool MULTI>
-__device__ void walk_back(const int8_t* pl, uint8_t* buf, uint8_t* o,
-                          int ql, int tl, int T, int K, int band, int P,
-                          int R, int L, int lane) {
+__device__ __forceinline__ void walk_back(const int8_t* pl, uint8_t* buf,
+                                          uint8_t* o, int ql, int tl, int T,
+                                          int K, int band, int P, int R,
+                                          int L, int lane) {
   constexpr int MAIN = 0, DEL = 1, INS = 2;
   int j = tl, d = ql - tl + K, ln = MAIN, s = 0;
   int off = plane_byte<CPT, MULTI>(d);
@@ -151,30 +179,35 @@ __device__ void walk_back(const int8_t* pl, uint8_t* buf, uint8_t* o,
     else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
     if (lane == 0) {
-      const int8_t* rows = (const int8_t*)(buf + cur * R * P);
-      while (active && s < L) {
+      const unsigned rows =
+          (unsigned)__cvta_generic_to_shared(buf + cur * R * P);
+      while (s < L) {
         const bool ok = j >= 0 && j + d >= K && (unsigned)d < (unsigned)band;
         const int row = min(j, T);
         if (ok && row < lo) break;  // the walk enters the next chunk
-        const int p = ok ? (int)rows[(row - lo) * P + off] : -1;
+        // an unconditional load (of byte 0 off the band), then the mask
+        int p = lds_u8(rows + (ok ? (row - lo) * P + off : 0));
+        if (!ok) p = 0;
         const int offL = plane_byte<CPT, MULTI>(d - 1);
         const int offR = plane_byte<CPT, MULTI>(d + 1);
-        const int x = ln == MAIN ? (p & 7) : (ln == DEL ? REF_DELC : REF_INSC);
-        active = p >= 0 && x != DONE;
-        if (active) {
-          const int a = x == REF_DELC ? DOWN : (x == REF_INSC ? LEFT : x);
-          ln = x == REF_DELC ? ((p & DEL_OPEN_BIT) ? MAIN : DEL)
-             : x == REF_INSC ? ((p & INS_OPEN_BIT) ? MAIN : INS) : MAIN;
-          j -= a != LEFT;
-          d += (a == DOWN) - (a == LEFT);
-          off = a == DOWN ? offR : (a == LEFT ? offL : off);
-          byte |= (unsigned)a << (2 * (s & 3));
-          if ((s & 3) == 3) {
-            o[s >> 2] = (uint8_t)byte;
-            byte = 0;
-          }
-          ++s;
+        if (!(p & VALID_BIT) || (ln == MAIN && (p & DONE_BIT))) {
+          active = false;
+          break;
         }
+        // x: the arrow in MAIN, delClose in DEL, insClose in INS
+        const int x = ln == MAIN ? arrow_of(p) : ln + 3;
+        const int a = x < REF_DELC ? x : 6 - x;  // delClose 4 DOWN, 5 LEFT
+        const bool closes = p & (x == REF_DELC ? DEL_OPEN_BIT : INS_OPEN_BIT);
+        ln = x < REF_DELC || closes ? MAIN : x - 3;
+        j -= a != LEFT;
+        d += (a == DOWN) - (a == LEFT);
+        off = a == DOWN ? offR : (a == LEFT ? offL : off);
+        byte |= (unsigned)a << (2 * (s & 3));
+        if ((s & 3) == 3) {
+          o[s >> 2] = (uint8_t)byte;
+          byte = 0;
+        }
+        ++s;
       }
     }
     const bool more = __shfl_sync(FULL, active && s < L, 0);
@@ -200,20 +233,27 @@ struct Xch {
   int pad;           // 32 bytes: the next group's buffer stays aligned
 };
 
-// The plane byte of a cell: the main arrow in the tie order match > ins >
-// del > delClose > insClose, the del-open and ins-open flags; -1 off the
-// valid cells.  Sl: the row's S one cell left.
-__device__ __forceinline__ int8_t arrow(float Sv, float Sl, float I,
-                                        float sMat, float delLin, float Dn,
-                                        bool dopen, bool valid, float indel,
-                                        float open) {
-  int a = Sv == Dn ? REF_DELC : REF_INSC;
-  a = Sv == delLin ? DOWN : a;
-  a = Sv == Sl + indel ? LEFT : a;
-  a = Sv == sMat ? DIAG : a;
-  a |= dopen ? DEL_OPEN_BIT : 0;
-  a |= I == Sl + open ? INS_OPEN_BIT : 0;
-  return valid ? (int8_t)a : (int8_t)-1;
+// The plane byte of a cell, as the walk decodes it: bit 0 S == S[j-1][d]
+// + sub (match), bit 1 S == Sl + indel (ins), bit 2 S == S[j-1][d+1] +
+// indel (del), bit 3 S == D (delClose); the main arrow is the first of
+// them in that order, insClose if none (the reference's tie order);
+// bit 4 D's open won (del-open), bit 5 I == Sl + open (ins-open), bit 6
+// the cell is valid; bit 7 marks DONE (row 0 only).  Sl: the row's S one
+// cell left.  The byte is built in f32 on the FMA pipe: 2^23 plus each
+// flag times its bit is exact, and its low byte is the flags.
+__device__ __forceinline__ int8_t plane_flags(float Sv, float Sl, float I,
+                                              float sMat, float delLin,
+                                              float Dn, float dop,
+                                              bool valid, float indel,
+                                              float open) {
+  float acc = valid ? 8388672.f : 8388608.f;  // 2^23 (+ 64: valid)
+  acc += (float)(Sv == sMat);
+  acc = fmaf((float)(Sv == Sl + indel), 2.f, acc);
+  acc = fmaf((float)(Sv == delLin), 4.f, acc);
+  acc = fmaf((float)(Sv == Dn), 8.f, acc);
+  acc = fmaf(dop, 16.f, acc);
+  acc = fmaf((float)(I == Sl + open), 32.f, acc);
+  return (int8_t)(__float_as_uint(acc) & 0xffu);
 }
 
 __device__ __forceinline__ void group_sync(int id, int nthreads) {
@@ -230,7 +270,7 @@ banded_refine_kernel(const int8_t* __restrict__ q,
                      int8_t* __restrict__ planes, uint8_t* __restrict__ out,
                      int* __restrict__ counter, int B, int Q, int T, int K,
                      float m, float mm, float indel, int WP, int PPC, int P,
-                     int R, int persistent, int walk) {
+                     int R, int walk) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -248,21 +288,15 @@ banded_refine_kernel(const int8_t* __restrict__ q,
 #pragma unroll
   for (int c = 0; c < CPT; ++c) indd[c] = indel * (float)(d0 + c);
 
-  int next = blockIdx.x * PPC + g;
   for (;;) {
     int b;
-    if (persistent) {
-      if (MULTI) {
-        if (wig == 0 && lane == 0) *slot = atomicAdd(counter, 1);
-        group_sync(g + 1, 32 * WP);
-        b = *slot;
-        group_sync(g + 1, 32 * WP);
-      } else {
-        b = __shfl_sync(FULL, lane == 0 ? atomicAdd(counter, 1) : 0, 0);
-      }
+    if (MULTI) {
+      if (wig == 0 && lane == 0) *slot = atomicAdd(counter, 1);
+      group_sync(g + 1, 32 * WP);
+      b = *slot;
+      group_sync(g + 1, 32 * WP);
     } else {
-      b = next;
-      next += gridDim.x * PPC;
+      b = __shfl_sync(FULL, lane == 0 ? atomicAdd(counter, 1) : 0, 0);
     }
     if (b >= B) break;
 
@@ -280,8 +314,9 @@ banded_refine_kernel(const int8_t* __restrict__ q,
       const bool ok = offs >= -kb && offs <= kb && offs <= ql;
       S[c] = (offs >= 0 && ok) ? indel * (float)offs : NEGF;
       D[c] = NEGF;
-      pcell[32 * c] = ok ? (int8_t)(offs > 0 ? LEFT : (offs == 0 ? DONE : -1))
-                         : (int8_t)-1;
+      pcell[32 * c] = !ok || offs < 0 ? (int8_t)0
+                      : (int8_t)(offs > 0 ? VALID_BIT | INS_BIT
+                                          : VALID_BIT | DONE_BIT);
     }
     // row j-1's S and D right of the warp's last cell (lane 31 reads them)
     float Srn = NEGF, Drn = NEGF;
@@ -316,7 +351,7 @@ banded_refine_kernel(const int8_t* __restrict__ q,
         d_n = Drn;
       }
       float sMat[CPT], delLin[CPT], Dn[CPT], inc0[CPT], exc1[CPT];
-      unsigned vmask = 0, dmask = 0;
+      unsigned vmask = 0;
       float run0 = -INFINITY, run1 = -INFINITY;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
@@ -326,7 +361,6 @@ banded_refine_kernel(const int8_t* __restrict__ q,
         sMat[c] = S[c] + sub;
         const float t1 = s1 + open;
         Dn[c] = fmaxf(t1, d1);
-        dmask |= (Dn[c] == t1 ? 1u : 0u) << c;
         delLin[c] = s1 + indel;
         float base = fmaxf(fmaxf(sMat[c], delLin[c]), Dn[c]);
         const bool v = c >= lo_rel && c <= hi_rel;
@@ -387,25 +421,32 @@ banded_refine_kernel(const int8_t* __restrict__ q,
           Drn = Y.vf ? Y.dnf : NEGF;
         }
       }
-      // S and D of row j; the arrows of cells 1.. as S fills in (cell c's
-      // left neighbour is the new S[c-1]), then cell 0's after the shuffle
+      // S and D of row j; the plane bytes of cells 1.. as S fills in (cell
+      // c's left neighbour is the new S[c-1], its right one in row j-1 the
+      // old S[c+1]), then cell 0's after the shuffle
       int8_t* prow = pcell + (size_t)j * P;
-      float I0 = NEGF;
+      float I0 = NEGF, dop0 = 0.f;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const bool v = (vmask >> c) & 1;
         const float L0 = fmaxf(inc0[c], ex0) + indd[c];
         const float I = fmaxf(exc1[c], ex1) + open;
+        const float s1 = c + 1 < CPT ? S[c + 1] : s_n;
+        const float dop = (float)(Dn[c] == s1 + open);  // D's open won
         S[c] = v ? fmaxf(L0, I) : NEGF;
         D[c] = v ? Dn[c] : NEGF;
-        if (c == 0) I0 = I;
-        else prow[32 * c] = arrow(S[c], S[c - 1], I, sMat[c], delLin[c],
-                                  Dn[c], (dmask >> c) & 1, v, indel, open);
+        if (c == 0) {
+          I0 = I;
+          dop0 = dop;
+        } else {
+          prow[32 * c] = plane_flags(S[c], S[c - 1], I, sMat[c], delLin[c],
+                                     Dn[c], dop, v, indel, open);
+        }
       }
       float sl = __shfl_up_sync(FULL, S[CPT - 1], 1);
       if (lane == 0) sl = sl_first;
-      prow[0] = arrow(S[0], sl, I0, sMat[0], delLin[0], Dn[0], dmask & 1,
-                      vmask & 1, indel, open);
+      prow[0] = plane_flags(S[0], sl, I0, sMat[0], delLin[0], Dn[0], dop0,
+                            vmask & 1, indel, open);
 #pragma unroll
       for (int c = 0; c + 1 < CPT; ++c) qc[c] = qc[c + 1];
       qc[CPT - 1] = qn;
@@ -423,32 +464,29 @@ template <int CPT, bool MULTI>
 int launch(const void* q, const void* t, const void* qlen, const void* tlen,
            const void* kband, void* planes, void* out, void* counter, int B,
            int Q, int T, int K, int m, int mm, int indel, int WP, int PPC,
-           int P, int R, int smem, int persistent, int walk,
-           cudaStream_t stream) {
+           int P, int R, int smem, int walk, cudaStream_t stream) {
   auto kern = banded_refine_kernel<CPT, MULTI>;
   const int threads = 32 * WP * PPC;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  int grid = (B + PPC - 1) / PPC;
-  if (persistent) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                      smem);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid = min(grid, per_sm * sms);
-    e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // persistent grid: the blocks that fit on the card at once, at most one
+  // per PPC problems
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = min((B + PPC - 1) / PPC, per_sm * sms);
+  e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
   kern<<<grid, threads, smem, stream>>>(
       (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
       (const int*)kband, (int8_t*)planes, (uint8_t*)out, (int*)counter, B, Q,
-      T, K, (float)m, (float)mm, (float)indel, WP, PPC, P, R, persistent,
-      walk);
+      T, K, (float)m, (float)mm, (float)indel, WP, PPC, P, R, walk);
   return (int)cudaGetLastError();
 }
 
@@ -463,7 +501,7 @@ extern "C" int lra_banded_refine_traced_packed(
     const void* q, const void* t, const void* qlen, const void* tlen,
     const void* kband, void* planes, void* out, void* counter, int B, int Q,
     int T, int K, int m, int mm, int indel, int CPT, int WP, int PPC, int P,
-    int R, int smem, int persistent, int walk, void* stream) {
+    int R, int smem, int walk, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (B == 0) return 0;
   if (2 * K + 1 > 32 * CPT * WP || P != 32 * CPT * WP || PPC < 1 ||
@@ -471,8 +509,8 @@ extern "C" int lra_banded_refine_traced_packed(
     return (int)cudaErrorInvalidValue;
 #define LRA_K5_LAUNCH(C, MULTI)                                              \
   return launch<C, MULTI>(q, t, qlen, tlen, kband, planes, out, counter, B, \
-                          Q, T, K, m, mm, indel, WP, PPC, P, R, smem,       \
-                          persistent, walk, st)
+                          Q, T, K, m, mm, indel, WP, PPC, P, R, smem, walk, \
+                          st)
   if (WP == 1 && CPT == 2) LRA_K5_LAUNCH(2, false);
   if (WP == 1 && CPT == 5) LRA_K5_LAUNCH(5, false);
   if (WP == 1 && CPT == 9) LRA_K5_LAUNCH(9, false);

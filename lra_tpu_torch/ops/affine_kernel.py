@@ -472,40 +472,41 @@ def banded_refine_traced_packed(q, t, qlen, tlen, K, m, mm, indel,
                                              indel, kband)
 
 
-# K5's grid: True, one block per SM slot, each group of warps taking the
-# next problem from an atomic counter; False, one problem per group
-PERSISTENT = True
 _REFINE_CPT = (2, 5, 9)     # cells per lane of the kernel's instances
 _REFINE_CTA_WARPS = 8       # warps per block when a bucket fills the card
-_REFINE_ROWS = 16           # plane rows per traceback chunk
+_REFINE_ROWS = 16           # plane rows per traceback chunk, full buckets
+_REFINE_CHUNK_BYTES = 32768  # traceback chunk, one problem a block
 SMEM_MAX = 232448           # shared memory a block may use on sm_90
 
 
-def refine_plan(K: int, B: int | None = None, sms: int = 132,
-                ppc: int | None = None) -> dict:
+def refine_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
     """Launch plan of csrc/banded_refine.cu for B problems with a band of
     2K+1 cells on a card of `sms` SMs: CPT cells per lane, WP warps per
     problem (the fewest: CPT 9 once one warp's 288 cells hold the band;
     WP * 32 * CPT >= band), PPC problems per block, the plane pitch P =
     32 * CPT * WP bytes, R plane rows per traceback chunk, the dynamic
     shared memory in bytes (per problem: two chunks, the WP > 1 exchange
-    slots, the problem index), threads per block and the grid mode.
+    slots, the problem index) and threads per block.  The grid is
+    persistent: one block per SM slot, each group of warps taking the
+    next problem from an atomic counter.
 
     A bucket that gives every SM a block of 8 warps gets 8 / WP problems
-    per block; a smaller one (B = None counts as small) one problem per
-    block, so that its blocks spread over all SMs.  `ppc` overrides."""
+    per block and chunks of 16 rows (other warps' rows hide the walk's
+    loads); a smaller one (B = None counts as small) one problem per
+    block, so that its blocks spread over all SMs, and chunks of up to 32
+    KB (16-64 rows), so that the walk, which bounds such a bucket, runs
+    a chunk ahead of its loads."""
     band = 2 * K + 1
     cpt = next((c for c in _REFINE_CPT if 32 * c >= band), _REFINE_CPT[-1])
     wp = -(-band // (32 * cpt))
-    if ppc is None:
-        full = B is not None and B * wp >= _REFINE_CTA_WARPS * sms
-        ppc = max(1, _REFINE_CTA_WARPS // wp) if full else 1
+    full = B is not None and B * wp >= _REFINE_CTA_WARPS * sms
+    ppc = max(1, _REFINE_CTA_WARPS // wp) if full else 1
     P = 32 * cpt * wp
-    R = _REFINE_ROWS
+    R = (_REFINE_ROWS if ppc > 1
+         else max(16, min(64, _REFINE_CHUNK_BYTES // P)))
     group = 2 * R * P + (64 * wp if wp > 1 else 0) + 16
     return {"CPT": cpt, "WP": wp, "PPC": ppc, "P": P, "R": R,
-            "smem": ppc * group, "threads": 32 * wp * ppc,
-            "persistent": PERSISTENT}
+            "smem": ppc * group, "threads": 32 * wp * ppc}
 
 
 @functools.lru_cache(maxsize=None)
@@ -513,7 +514,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_REFINE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
+_REFINE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
 
 
 def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
@@ -544,7 +545,7 @@ def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
                 p(qlen), p(tlen), p(kband), p(scratch), p(out), p(counter),
                 B, Q, T, K, int(m), int(mm), int(indel), plan["CPT"],
                 plan["WP"], plan["PPC"], plan["P"], plan["R"], plan["smem"],
-                int(plan["persistent"]), int(walk))
+                int(walk))
     return out
 
 

@@ -87,8 +87,8 @@ def test_refine_kernel_matches_plain(cuda_device, B, S, K):
     """K5 at every K tier (30, 64, 128, 256, 512), off-tier K (100, 700,
     1023: the widest band the wrapper takes), S 16-2048, B no multiple
     of the problems a block holds, and the edge problems of
-    sim.refine_problems, through the wrapper and with each launch plan
-    forced: packed ops exactly equal to the plain twin."""
+    sim.refine_problems, through the wrapper and with each of the two
+    launch plans forced: packed ops exactly equal to the plain twin."""
     q, t, ql, tl, kb = [torch.from_numpy(a).to(cuda_device) for a in
                         refine_problems(np.random.default_rng(S + K), B, S,
                                         K)]
@@ -99,21 +99,12 @@ def test_refine_kernel_matches_plain(cuda_device, B, S, K):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert bool((ref != 0).any())
-    # one and several problems per block, each on the persistent and the
-    # plain grid
-    keep = ak.PERSISTENT
-    try:
-        for persistent in (True, False):
-            ak.PERSISTENT = persistent
-            for ppc in (1, None):
-                plan = ak.refine_plan(K, 16384 if ppc is None else B,
-                                      ppc=ppc)
-                got = ak._refine_cuda(q, t, ql, tl, kb, K, M, MM, IND,
-                                      plan=plan)
-                torch.cuda.synchronize()
-                assert torch.equal(got, ref), plan
-    finally:
-        ak.PERSISTENT = keep
+    # the plans of a small and of a full bucket: one and 8 / WP problems
+    # per block
+    for plan in (ak.refine_plan(K, 1), ak.refine_plan(K, 1 << 20)):
+        got = ak._refine_cuda(q, t, ql, tl, kb, K, M, MM, IND, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), plan
 
 
 @pytest.mark.cuda
