@@ -18,10 +18,12 @@
 //
 // Bound: operations.  chip_smoke.py's dp_bound counts 18 per band cell
 // of the rows the data needs.  The kernel's row at CPT 9 is about 470
-// warp instructions for 288 cells (cuobjdump -sass), some 290 of them
-// compares, maxima and selects on the half-rate ALU pipe, so a full card
-// is bound by that pipe; the plane's int8 writes and the walk's reads
-// (288 B each per row at K=128) are the memory floor.
+// warp instructions for 288 cells (cuobjdump -sass): half of them
+// compares, maxima and selects on the half-rate ALU pipe, half adds and
+// FMAs, so a full card is bound by instruction issue; the plane's int8
+// writes and the walk's reads (288 B each per row at K=128) are the
+// memory floor.  A bucket of few problems is bound by the latency of its
+// longest problem's rows and walk.
 //
 // Design (ops/affine_kernel.py:refine_plan chooses the tier):
 // - A problem's band row lives in WP warps; lane l of warp w owns the CPT
@@ -85,7 +87,7 @@
 //
 // ptxas (sm_90a, chip_smoke.py logs it): 128 registers at CPT 9 (the
 // __launch_bounds__(256, 2) cap; a 4-byte spill outside the row loop)
-// and at CPT 9 with WP > 1, 96 at CPT 5, 64 at CPT 2; dynamic shared
+// and at CPT 9 with WP > 1, 92 at CPT 5, 56 at CPT 2; dynamic shared
 // memory only, PPC * (2 * R * P + 16) bytes, plus 64 * WP per problem at
 // WP > 1 (at most 74,256 B).
 
@@ -133,6 +135,11 @@ __device__ __forceinline__ int arrow_of(int p) {
   return (int)((TAB >> ((p & 15) << 2)) & 7);
 }
 
+// A valid cell whose main arrow is DIAG (its match flag set), not DONE.
+__device__ __forceinline__ bool is_match(int p) {
+  return (p & (VALID_BIT | MATCH_BIT | DONE_BIT)) == (VALID_BIT | MATCH_BIT);
+}
+
 // Byte of band cell d in a plane row: warp segment, then lane-major.
 template <int CPT, bool MULTI>
 __device__ __forceinline__ int plane_byte(int d) {
@@ -157,7 +164,9 @@ __device__ __forceinline__ int plane_byte(int d) {
 // walker keeps the band cell d and its byte, computes the bytes of d - 1
 // and d + 1 while the shared-memory load is in flight, and decodes a
 // step without branches (arrow_of; delClose 4 and insClose 5 map to
-// DOWN 2 and LEFT 1 as 6 - x; the lanes DEL 1 and INS 2 as x - 3).
+// DOWN 2 and LEFT 1 as 6 - x; the lanes DEL 1 and INS 2 as x - 3).  A
+// run of matches takes up to 4 DIAG steps a turn: the cell's bytes in
+// the next 3 rows are loaded with its own.
 template <int CPT, bool MULTI>
 __device__ __forceinline__ void walk_back(const int8_t* pl, uint8_t* buf,
                                           uint8_t* o, int ql, int tl, int T,
@@ -185,9 +194,34 @@ __device__ __forceinline__ void walk_back(const int8_t* pl, uint8_t* buf,
         const bool ok = j >= 0 && j + d >= K && (unsigned)d < (unsigned)band;
         const int row = min(j, T);
         if (ok && row < lo) break;  // the walk enters the next chunk
-        // an unconditional load (of byte 0 off the band), then the mask
-        int p = lds_u8(rows + (ok ? (row - lo) * P + off : 0));
+        // an unconditional load (of byte 0 off the band), then the mask;
+        // with it the cell's bytes in the 3 rows below (clamped to the
+        // chunk), for a run of matches down the diagonal
+        const unsigned at = rows + (ok ? (row - lo) * P + off : 0);
+        const int below = ok ? min(row - lo, 3) : 0;
+        int p = lds_u8(at);
+        const int p1 = lds_u8(at - (below >= 1 ? P : 0));
+        const int p2 = lds_u8(at - (below >= 2 ? 2 * P : 0));
+        const int p3 = lds_u8(at - (below >= 3 ? 3 * P : 0));
         if (!ok) p = 0;
+        if (ln == MAIN && j <= T && is_match(p)) {
+          // MAIN lane on match arrows: DIAG steps down the diagonal, d
+          // and its byte unchanged, as long as the rows below are in
+          // the chunk and match too
+          const int room = min(below, L - s - 1);
+          const int n = 1 + (room >= 1 && is_match(p1)) *
+                            (1 + (room >= 2 && is_match(p2)) *
+                                 (1 + (room >= 3 && is_match(p3))));
+          j -= n;
+          for (int k = 0; k < n; ++k, ++s) {
+            byte |= (unsigned)DIAG << (2 * (s & 3));
+            if ((s & 3) == 3) {
+              o[s >> 2] = (uint8_t)byte;
+              byte = 0;
+            }
+          }
+          continue;
+        }
         const int offL = plane_byte<CPT, MULTI>(d - 1);
         const int offR = plane_byte<CPT, MULTI>(d + 1);
         if (!(p & VALID_BIT) || (ln == MAIN && (p & DONE_BIT))) {
