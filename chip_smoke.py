@@ -431,33 +431,32 @@ def kernel_phase(dev) -> None:
         log(f"kernel chain_scores_windowed B={len(sizes)} N={N} W={W} "
             f"({kind}, {far} FAR sentinels): exact; {ms:.3f} ms (plain "
             f"{pms:.1f} ms, bound {bnd:.4f} ms, {by})")
-    for K in (30, 128, 512):
-        for S in (256, 2048):
-            a = banded_inputs(rng, 8, S, K, dev)
-            got = ak.banded_global_traced_packed(*a[:4], K, M, MM, IND,
-                                                 kband=a[4])
-            torch.cuda.synchronize()
-            ref = ak.banded_global_traced_packed_plain(*a[:4], K, M, MM, IND,
-                                                       a[4])
-            torch.cuda.synchronize()
-            exact(f"banded_global_traced_packed K={K} S={S}", got, ref)
-            ms = cuda_ms(lambda: ak.banded_global_traced_packed(
-                *a[:4], K, M, MM, IND, kband=a[4]), 5)
-            pms = cuda_ms(lambda: ak.banded_global_traced_packed_plain(
-                *a[:4], K, M, MM, IND, a[4]), 1)
-            log(f"kernel banded_global_traced_packed B=8 K={K} S={S}: "
-                f"exact; {ms:.3f} ms (plain {pms:.1f} ms)")
-    # K5: banded_inputs at K 30 and 64; then sim.refine_problems (indels
-    # of 1-6 bases, the edge rows) at every K tier, off-tier K (100, 700,
-    # 1023) and S 16-2048, B no multiple of the problems a block holds
-    k5 = [(banded_inputs(rng, 8, S, K, dev), K)
-          for K in (30, 64) for S in (256, 1024)]
+    # K4 and K5 on the same buckets: banded_inputs at K 30 and 64 (and K4
+    # at 128 and 512); then sim.refine_problems (indels of 1-6 bases, the
+    # edge rows) at every K tier, off-tier K (100, 700, 1023) and S
+    # 16-2048, B no multiple of the problems a block holds
+    banded = [(banded_inputs(rng, 8, S, K, dev), K)
+              for K in (30, 64) for S in (256, 1024)]
     for B, S, K in ((13, 16, 30), (64, 64, 30), (13, 128, 64),
                     (13, 256, 128), (13, 200, 100), (9, 512, 256),
                     (9, 1024, 512), (7, 2048, 700), (7, 2048, 1023)):
-        k5.append(([torch.from_numpy(x).to(dev) for x in
-                    refine_problems(rng, B, S, K)], K))
-    for a, K in k5:
+        banded.append(([torch.from_numpy(x).to(dev) for x in
+                        refine_problems(rng, B, S, K)], K))
+    k4 = banded + [(banded_inputs(rng, 8, S, K, dev), K)
+                   for K in (128, 512) for S in (256, 2048)]
+    for a, K in k4:
+        B, S = a[0].shape
+        got = ak.banded_global_traced_packed(*a[:4], K, M, MM, IND,
+                                             kband=a[4])
+        torch.cuda.synchronize()
+        ref, pms = timed(lambda: ak.banded_global_traced_packed_plain(
+            *a[:4], K, M, MM, IND, a[4]))
+        exact(f"banded_global_traced_packed B={B} K={K} S={S}", got, ref)
+        ms = cuda_ms(lambda: ak.banded_global_traced_packed(
+            *a[:4], K, M, MM, IND, kband=a[4]), 5)
+        log(f"kernel banded_global_traced_packed B={B} K={K} S={S}: "
+            f"exact; {ms:.3f} ms (plain {pms:.1f} ms)")
+    for a, K in banded:
         B, S = a[0].shape
         got = ak.banded_refine_traced_packed(*a[:4], K, M, MM, IND,
                                              kband=a[4])
@@ -540,6 +539,8 @@ class Recorder:
         self.best: dict = {}
         self.windowed: dict = {}    # path label: K7's largest input there
         self.refine: dict = {}      # path label: K5's largest input there
+        self.glob: dict = {}        # path label: K4's largest input there
+        self.glob_calls: dict = {}  # path label: (B, S, K) of each K4 call
         self.path = None
         self.saved = []
 
@@ -577,6 +578,10 @@ class Recorder:
                 keep.append((self.windowed, self.path))
             if name == "banded_refine_traced_packed":
                 keep.append((self.refine, self.path))
+            if name == "banded_global_traced_packed":
+                keep.append((self.glob, self.path))
+                self.glob_calls.setdefault(self.path, []).append(
+                    (args[0].shape[0], args[0].shape[1], args[4]))
             for store, k in keep:
                 if work > store.get(k, (-1,))[0]:
                     store[k] = (work, [x.clone() if hasattr(x, "clone")
@@ -1131,6 +1136,56 @@ def refine_paths_phase(rec) -> None:
                             f"walk {ms - f:.4f})" for ms, f in res[name]))
 
 
+def global_paths_phase(rec) -> None:
+    """K4 on each path: every launch's (B, S, K) in the path's recorded
+    run; its largest input there against the twin (exact), timed in two
+    rounds."""
+    import torch
+
+    from lra_tpu_torch.ops import affine_kernel as ak
+
+    if not rec.glob:
+        raise AssertionError("no main-path call of banded_global_traced_"
+                             "packed recorded")
+    for label, calls in rec.glob_calls.items():
+        tally: dict = {}
+        for c in calls:
+            tally[c] = tally.get(c, 0) + 1
+        log(f"K4 [{label}] {len(calls)} launches (B, S, K): "
+            + ", ".join(f"{c}" + (f" x{n}" if n > 1 else "")
+                        for c, n in sorted(tally.items(),
+                                           key=lambda x: x[0][::-1])))
+    for label, (_, args, kw) in rec.glob.items():
+        q, t, qlen, tlen, K = args[:5]
+        kband = kw["kband"]
+        B = q.shape[0]
+        ref, pms = timed(lambda: ak.banded_global_traced_packed_plain(
+            q, t, qlen, tlen, K, *args[5:8], kband))
+        fn = lambda: ak.banded_global_traced_packed(q, t, qlen, tlen, K,
+                                                    *args[5:8], kband=kband)
+        got = fn()
+        torch.cuda.synchronize()
+        exact(f"banded_global_traced_packed [{label}] (main-path input)",
+              got, ref)
+        res = [cuda_ms(fn, 10) for _ in range(2)]
+        rows = int((tlen.clamp(max=t.shape[1]) + 1).sum())
+        log(f"K4 [{label}] main-path input B={B} S={q.shape[1]} K={K} "
+            f"({rows} DP rows, {int((qlen > 0).sum())} problems with "
+            f"qlen > 0): exact; plain twin {pms:.1f} ms; "
+            + ", ".join(f"{ms:.4f} ms" for ms in res))
+
+
+def save_k4_inputs(rec, path) -> None:
+    """Each path's largest K4 input, for tools/k4_compare.py."""
+    import torch
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({label: ([a.cpu() if hasattr(a, "cpu") else a for a in args],
+                        {k: v.cpu() for k, v in kw.items()})
+                for label, (_, args, kw) in rec.glob.items()}, path)
+    log(f"K4 path inputs saved to {path}")
+
+
 def cpu_parity(work, all_lines) -> None:
     """The first reads (16 CCS, 4 ONT and CLR) on device="cpu" (plain
     twins) and on "cuda": SAM lines byte-equal to each other and to the
@@ -1236,6 +1291,11 @@ def profile_phase(work, label) -> None:
     mine = [r for r in rows if any(h in r[2] for h in HAND)]
     for dt, n, key in mine:
         log(f"  hand kernel {dt / 1e3:10.3f} ms {n:6d}x {key[:60]}")
+    for h in HAND:
+        inst = [r for r in mine if h in r[2]]
+        if inst:
+            log(f"  {h}: {sum(r[0] for r in inst) / 1e3:.3f} ms of device "
+                f"time in {sum(r[1] for r in inst)} launches")
     rest = [r for r in rows if r not in mine]
     log(f"  other device kernels (glue, copies, fills): "
         f"{sum(r[0] for r in rest) / 1e3:.1f} ms in "
@@ -1288,6 +1348,9 @@ def main() -> int:
                      launches)
     rows = main_path_kernels(rec, launches)
     refine_paths_phase(rec)
+    global_paths_phase(rec)
+    if "--save-k4" in sys.argv:
+        save_k4_inputs(rec, sys.argv[sys.argv.index("--save-k4") + 1])
     windowed_paths_phase(rec)
     log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
     cpu_parity(work, all_lines)
