@@ -2,6 +2,8 @@
 """Chip smoke run of lra_tpu_torch, the PyTorch/CUDA port of lra_tpu.
 
     python3 chip_smoke.py      # from the repository root, one CUDA GPU
+    python3 chip_smoke.py --save-k4 PATH   # also save each path's largest
+                                           # K4 input (tools/k4_compare.py)
 
 Needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); exits non-zero without a result line otherwise, and on any
@@ -11,9 +13,9 @@ failure.  Phases:
    kernel source;
 2. kernels: each hand-written kernel against its plain torch twin on
    seeded inputs at a spread of shapes — exact equality — with median
-   CUDA-event times (K5 at every K tier, off-tier K up to 1023, S 16 to
-   2048 and the edge problems of sim.refine_problems, with each of its
-   launch plans; K6 at (K, D) buckets up to 2052 lanes in both
+   CUDA-event times (K4 and K5 at every K tier, off-tier K up to 1023,
+   S 16 to 2048 and the edge problems of sim.refine_problems, with each
+   of their launch plans; K6 at (K, D) buckets up to 2052 lanes in both
    closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
    at N = 1280..40960 with W = 64..16384, B = 1..3, on an instance where
    the far term wins and on tie-dense instances), K7's cluster size and
@@ -42,10 +44,11 @@ failure.  Phases:
    need_full=False through solve_problems; best_chain and chain_vmax
    must equal the need_full=True results;
 5. the recorded main-path inputs: each kernel against its plain twin
-   again (exact), timed, beside its bound; K5 on the largest input of
-   each path, exact and timed with each launch plan, whole and with the
-   walk skipped; K7 on the largest input of CONTIG (b) and of (c), exact
-   and timed with clusters of 8 and 16 CTAs;
+   again (exact), timed, beside its bound; K5 and K4 on the largest
+   input of each path, exact and timed with each launch plan, whole and
+   with the walk skipped, and every K4 launch's (B, S, K) per path; K7
+   on the largest input of CONTIG (b) and of (c), exact and timed with
+   clusters of 8 and 16 CTAs;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
    device="cuda": the first 16 CCS reads in both configurations, the
    first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
@@ -452,10 +455,16 @@ def kernel_phase(dev) -> None:
         ref, pms = timed(lambda: ak.banded_global_traced_packed_plain(
             *a[:4], K, M, MM, IND, a[4]))
         exact(f"banded_global_traced_packed B={B} K={K} S={S}", got, ref)
+        for name, plan in plan_variants(ak.global_plan, K):
+            got = ak._global_cuda(*a[:4], a[4], K, M, MM, IND, plan=plan)
+            torch.cuda.synchronize()
+            exact(f"banded_global_traced_packed B={B} K={K} S={S} {name}",
+                  got, ref)
         ms = cuda_ms(lambda: ak.banded_global_traced_packed(
             *a[:4], K, M, MM, IND, kband=a[4]), 5)
-        log(f"kernel banded_global_traced_packed B={B} K={K} S={S}: "
-            f"exact; {ms:.3f} ms (plain {pms:.1f} ms)")
+        log(f"kernel banded_global_traced_packed B={B} K={K} S={S} "
+            f"{plan_str(ak.global_plan(K, B))}: exact, and with each "
+            f"launch plan; {ms:.3f} ms (plain {pms:.1f} ms)")
     for a, K in banded:
         B, S = a[0].shape
         got = ak.banded_refine_traced_packed(*a[:4], K, M, MM, IND,
@@ -464,7 +473,7 @@ def kernel_phase(dev) -> None:
         ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
             *a[:4], K, M, MM, IND, a[4]))
         exact(f"banded_refine_traced_packed B={B} K={K} S={S}", got, ref)
-        for name, plan in refine_variants(ak, K):
+        for name, plan in plan_variants(ak.refine_plan, K):
             got = ak._refine_cuda(*a[:4], a[4], K, M, MM, IND, plan=plan)
             torch.cuda.synchronize()
             exact(f"banded_refine_traced_packed B={B} K={K} S={S} {name}",
@@ -1072,13 +1081,14 @@ def windowed_paths_phase(rec) -> None:
         sw.CLUSTER = keep
 
 
-def refine_variants(ak, K) -> list:
-    """K5's two launch plans for a band of 2K+1 cells, by name: that of a
-    bucket too small to fill the card (one problem per block, traceback
-    chunks of up to 64 rows) and that of a full one (8 / WP problems per
-    block, 16-row chunks; 1 << 20 problems fill any card)."""
-    return [("small-bucket plan", ak.refine_plan(K, 1)),
-            ("full-bucket plan", ak.refine_plan(K, 1 << 20))]
+def plan_variants(plan_fn, K) -> list:
+    """K4's or K5's two launch plans (ops/affine_kernel.global_plan,
+    refine_plan) for a band of 2K+1 cells, by name: that of a bucket too
+    small to fill the card (one problem per block, traceback chunks of up
+    to 32 KB) and that of a full one (8 / WP problems per block, shorter
+    chunks; 1 << 20 problems fill any card)."""
+    return [("small-bucket plan", plan_fn(K, 1)),
+            ("full-bucket plan", plan_fn(K, 1 << 20))]
 
 
 def plan_str(plan) -> str:
@@ -1086,67 +1096,51 @@ def plan_str(plan) -> str:
         **plan)
 
 
-def refine_paths_phase(rec) -> None:
-    """K5 against its twin on the largest input each path gave it
-    (exact), timed whole and with the traceback skipped (the forward
-    rows alone; ops/affine_kernel._refine_cuda(walk=False), a launch the
-    main path never makes), with each plan of refine_variants (one of
-    them the wrapper's choice for that bucket), in two rounds of turns."""
+def planned_paths_phase(tag, store, plain, run, plan_fn) -> None:
+    """K4 or K5 (tag) against its twin on the largest input each path
+    gave it (store: the recorder's), exact and timed whole and with the
+    traceback skipped (the forward rows alone; run(..., walk=False), a
+    launch the main path never makes), with each plan of plan_variants
+    (one of them the wrapper's choice for that bucket), in two rounds of
+    turns."""
     import torch
 
     from lra_tpu_torch.ops import affine_kernel as ak
 
-    if not rec.refine:
-        raise AssertionError("no main-path call of banded_refine_traced_"
-                             "packed recorded")
-    for label, (_, args, kw) in rec.refine.items():
+    if not store:
+        raise AssertionError(f"no main-path call of {tag} recorded")
+    for label, (_, args, kw) in store.items():
         q, t, qlen, tlen, K = args[:5]
         kband = kw["kband"]
         B = q.shape[0]
-        ref, pms = timed(lambda: ak.banded_refine_traced_packed_plain(
-            q, t, qlen, tlen, K, *args[5:8], kband))
-        got = ak.banded_refine_traced_packed(q, t, qlen, tlen, K,
-                                             *args[5:8], kband=kband)
-        torch.cuda.synchronize()
-        exact(f"banded_refine_traced_packed [{label}] (main-path input)",
-              got, ref)
-        chosen = ak.refine_plan(K, B, ak._sm_count(0))
-        plans = refine_variants(ak, K)
+        ref, pms = timed(lambda: plain(q, t, qlen, tlen, K, *args[5:8],
+                                       kband))
+        chosen = plan_fn(K, B, ak._sm_count(0))
+        plans = plan_variants(plan_fn, K)
         res = {name: [] for name, _ in plans}
         for _ in range(2):
             for name, plan in plans:
-                fn = lambda: ak._refine_cuda(q, t, qlen, tlen, kband, K,
-                                             *args[5:8], plan=plan)
-                fwd = lambda: ak._refine_cuda(q, t, qlen, tlen, kband, K,
-                                              *args[5:8], walk=False,
-                                              plan=plan)
+                fn = lambda: run(q, t, qlen, tlen, kband, K, *args[5:8],
+                                 plan=plan)
+                fwd = lambda: run(q, t, qlen, tlen, kband, K, *args[5:8],
+                                  walk=False, plan=plan)
                 got = fn()
                 torch.cuda.synchronize()
-                exact(f"banded_refine_traced_packed [{label}] {name} "
-                      "(main-path input)", got, ref)
+                exact(f"{tag} [{label}] {name} (main-path input)", got, ref)
                 res[name].append((cuda_ms(fn, 10), cuda_ms(fwd, 10)))
         rows = int((tlen.clamp(max=t.shape[1]) + 1).sum())
-        log(f"K5 [{label}] main-path input B={B} S={q.shape[1]} K={K} "
+        log(f"{tag} [{label}] main-path input B={B} S={q.shape[1]} K={K} "
             f"({rows} DP rows, {int((qlen > 0).sum())} problems with "
             f"qlen > 0): exact with every plan; plain twin {pms:.1f} ms")
         for name, plan in plans:
             mark = ", the wrapper's choice" if plan == chosen else ""
-            log(f"  K5 [{label}] {name} ({plan_str(plan)}{mark}): "
+            log(f"  {tag} [{label}] {name} ({plan_str(plan)}{mark}): "
                 + ", ".join(f"{ms:.4f} ms (forward rows alone {f:.4f}, "
                             f"walk {ms - f:.4f})" for ms, f in res[name]))
 
 
-def global_paths_phase(rec) -> None:
-    """K4 on each path: every launch's (B, S, K) in the path's recorded
-    run; its largest input there against the twin (exact), timed in two
-    rounds."""
-    import torch
-
-    from lra_tpu_torch.ops import affine_kernel as ak
-
-    if not rec.glob:
-        raise AssertionError("no main-path call of banded_global_traced_"
-                             "packed recorded")
+def k4_launch_shapes(rec) -> None:
+    """Every K4 launch's (B, S, K) in each path's recorded run."""
     for label, calls in rec.glob_calls.items():
         tally: dict = {}
         for c in calls:
@@ -1155,24 +1149,6 @@ def global_paths_phase(rec) -> None:
             + ", ".join(f"{c}" + (f" x{n}" if n > 1 else "")
                         for c, n in sorted(tally.items(),
                                            key=lambda x: x[0][::-1])))
-    for label, (_, args, kw) in rec.glob.items():
-        q, t, qlen, tlen, K = args[:5]
-        kband = kw["kband"]
-        B = q.shape[0]
-        ref, pms = timed(lambda: ak.banded_global_traced_packed_plain(
-            q, t, qlen, tlen, K, *args[5:8], kband))
-        fn = lambda: ak.banded_global_traced_packed(q, t, qlen, tlen, K,
-                                                    *args[5:8], kband=kband)
-        got = fn()
-        torch.cuda.synchronize()
-        exact(f"banded_global_traced_packed [{label}] (main-path input)",
-              got, ref)
-        res = [cuda_ms(fn, 10) for _ in range(2)]
-        rows = int((tlen.clamp(max=t.shape[1]) + 1).sum())
-        log(f"K4 [{label}] main-path input B={B} S={q.shape[1]} K={K} "
-            f"({rows} DP rows, {int((qlen > 0).sum())} problems with "
-            f"qlen > 0): exact; plain twin {pms:.1f} ms; "
-            + ", ".join(f"{ms:.4f} ms" for ms in res))
 
 
 def save_k4_inputs(rec, path) -> None:
@@ -1314,6 +1290,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.ops import affine_kernel as ak
 
     smi = smi_line()
     log(smi)
@@ -1347,8 +1324,13 @@ def main() -> int:
     chain_mask_phase(mixes["ccs use_pallas=True"].sdp2, work["ccs"][3], rec,
                      launches)
     rows = main_path_kernels(rec, launches)
-    refine_paths_phase(rec)
-    global_paths_phase(rec)
+    planned_paths_phase("K5", rec.refine,
+                        ak.banded_refine_traced_packed_plain,
+                        ak._refine_cuda, ak.refine_plan)
+    k4_launch_shapes(rec)
+    planned_paths_phase("K4", rec.glob,
+                        ak.banded_global_traced_packed_plain,
+                        ak._global_cuda, ak.global_plan)
     if "--save-k4" in sys.argv:
         save_k4_inputs(rec, sys.argv[sys.argv.index("--save-k4") + 1])
     windowed_paths_phase(rec)

@@ -1,13 +1,14 @@
 // Shared pieces of the banded DP kernels (banded_global.cu, rowsync.cu,
-// banded_refine.cu): op codes, a block-wide prefix-max scan, and the
-// forward row of the linear-gap banded global DP.  banded_global.cu and
-// rowsync.cu both call banded_row(), so their forward passes cannot
-// drift apart.
+// banded_refine.cu): op codes, NEGF, the q pad code; and for rowsync.cu
+// (P1) a block-wide prefix-max scan and the block-level forward row of
+// the linear-gap banded global DP.  banded_global.cu (K4) computes the
+// same row at warp level with its own code; chip_smoke.py holds P1's
+// decoded blocks equal to K4's, which ties the two forward passes
+// together.
 //
-// Layout: one CTA per problem.  A row of the band (2K+1 diagonal offsets
-// d, cell i = j + d - K) is spread over the CTA, thread t owning the CPT
-// contiguous cells [t*CPT, t*CPT + CPT).  CPT is 1 up to a band of 1024
-// and 2 for the widest tier (K=512, band 1025).
+// Layout of banded_row: one CTA per problem.  A row of the band (2K+1
+// diagonal offsets d, cell i = j + d - K) is spread over the CTA, thread
+// t owning the CPT contiguous cells [t*CPT, t*CPT + CPT).
 //
 // Exactness: every DP value is a small integer (or NEGF) held in f32, so
 // sums are exact and maxima are order-free.  The in-row insertion chain

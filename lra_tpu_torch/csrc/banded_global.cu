@@ -1,22 +1,81 @@
 // Banded global alignment with device traceback, 2-bit packed ops:
-// banded_global_traced_packed.
+// banded_global_traced_packed (K4).
 //
 // Replaces lra_tpu/ops/affine_kernel.py:banded_global_traced_packed
-// (_banded_arrows + _traceback_ops_device, two jitted lax.scans).  Same
-// recurrence, masks and tie order (see banded_common.cuh), same output:
-// per problem the ops walking back from (qlen, tlen), one per step,
-// packed 4 to a byte (LEFT/DOWN/DIAG = 1/2/3, 0 after the end).
+// (:206), _banded_arrows (the forward rows) and _traceback_ops_device
+// (the walk) jitted together.  The linear-gap banded DP: per row j, band
+// cell d (cell i = j + d - K):
+//   base = max(S[j-1][d] + sub, S[j-1][d+1] + indel), indel * j at i = 0
+//   S    = max_{e <= d} base[e] + indel * (d - e)      (LEFT chains)
+// with the arrow's tie order LEFT > DOWN > DIAG compared on S, DOWN on
+// the i = 0 rail, and row 0 LEFT for 0 < offs <= kband (DONE at offs 0,
+// qlen not checked).  Output: per problem the ops walking back from
+// (qlen, tlen), one per step, packed 4 to a byte (LEFT/DOWN/DIAG =
+// 1/2/3, 0 after the end).
 //
-// Design: one CTA per problem.  The CTA computes the rows j = 1..tlen of
-// the band in order (rows past tlen are never visited by the traceback),
-// keeping two rows in shared memory and writing each row's int8 arrows
-// to a global scratch plane [T+1, band]; then thread 0 walks the arrows
-// from (qlen, tlen) and writes the packed ops.
-// Bound: the forward pass is latency-bound on its per-row barriers (a
-// band of 61..1025 cells is one to 33 warps); the traceback is a chain of
-// dependent global loads, one per op.  Arrows in shared memory (they fit
-// for the narrow tiers) and several problems per CTA are the next speed
-// steps.
+// Bound: a full bucket (the main path's B=65536 S=16 K=30) is bound by
+// instruction issue: chip_smoke.py's dp_bound counts 10 operations per
+// band cell, and the kernel spends about 40 warp instructions per lane
+// cell pair and row at CPT 2 (shuffles, the scan, the ballots).  A
+// bucket of few long problems (K up to 512, S up to 2048) is bound by
+// the latency of its longest problem's rows and walk.  The 2-bit plane
+// written and read back is the memory floor (16 B a row at K=30).
+//
+// Design (ops/affine_kernel.py:global_plan chooses the tier):
+// - A problem's band row lives in WP warps; lane l of warp w owns the CPT
+//   contiguous cells d = (32w + l) * CPT + c.  Tiers: CPT 2 (K < 32),
+//   5 (K < 80), 9 with WP 1 (K < 144) and 9 with WP = ceil(band / 288)
+//   beyond (2 at K=256, 4 at K=512, up to 8 at K=1023).  A block holds
+//   PPC = 8 / WP problems when the bucket gives every SM a block of 8
+//   warps, else one, so that a small bucket spreads over all SMs.
+//   Persistent grid: one block per SM slot, each group of WP warps
+//   taking the next problem from an atomic counter.
+// - Row j-1's S[d+1] comes by __shfl_down_sync, the left neighbour of a
+//   lane's first cell in row j by __shfl_up_sync, and the q codes move
+//   one cell left a row by the same shuffle (lane 31 loads its last
+//   cell's code).  The closure is indel * d + prefixmax_{e <= d}(base[e]
+//   - indel * e): a thread-local pass and a 5-step warp scan.  At WP = 1
+//   a row has no barrier at all.
+// - At WP > 1, one named barrier (bar.sync 1 + group, 32 * WP) per row:
+//   before it each warp publishes, in a slot indexed by row parity, its
+//   scan aggregate, its first cell's term and the validity of its first
+//   and last cells.  After it a warp rebuilds its first cell's left
+//   neighbour S (warp w-1's last cell) and, for the next row, its last
+//   cell's right neighbour S (warp w+1's first cell), each by the same
+//   operations on the same operands as the warp that owns the cell.
+// - The arrow plane is a global scratch [B, T+1, P] of 2-bit codes (0
+//   stop: DONE or off the valid cells; 1 LEFT, 2 DOWN, 3 DIAG; the walk
+//   treats DONE and invalid alike).  Each warp writes a row as 2 * CPT
+//   __ballot_sync words, word 2c holding bit 0 and word 2c + 1 bit 1 of
+//   cell c of every lane (bit l: lane l), padded to 16-byte stores:
+//   SEG = 16 * ceil(CPT / 2) bytes a warp, P = SEG * WP (16 B a row at
+//   K=30, 80 at K=128; the int8 plane of the old design was band bytes).
+// - After its rows, warp 0 of the group walks back (walk_back): chunks of
+//   R plane rows go to shared memory with 16-byte cp.async copies, the
+//   next chunk in flight while lane 0 walks the current one with the
+//   reference's step rule (d = i - j + K, row min(j, T), stop off the
+//   band), a cell's code read as one 8-byte load of its word pair; a run
+//   of DIAG takes up to 4 rows a turn.  Packed bytes go out as lane 0
+//   completes them, zeros after the end by the whole warp.
+//
+// Exactness (the plain twin is bit-exact against lra_tpu; this kernel
+// against the twin):
+// - Every value is a small integer or NEGF = -1e30 in f32: sums are exact
+//   and maxima order-free, so any scan order gives the same bits; no
+//   fast-math.  The closure above equals the twin's log-step doubling
+//   (both are max_e base[e] + indel * (d - e)); NEGF + |indel * band|
+//   rounds back to NEGF.
+// - Pad cells d >= band are invalid: their S is NEGF and their code 0.
+//   They trail the band, so they enter no valid cell's prefix, and the
+//   right neighbour of cell band-1 in row j-1 is a pad (or lane 31 of the
+//   last warp's NEGF), as the twin's NEGF shift-in gives.  Cell 0's left
+//   neighbour is NEGF, as in the twin.
+// - Rows are computed for j <= min(tlen, T); the walk starts at row
+//   min(tlen, T) and only moves down, so it reads written rows only.
+//
+// ptxas (sm_90a, chip_smoke.py logs it): see PERF.md; dynamic shared
+// memory only, PPC * (2 * R * P + 16) bytes plus 32 * WP per problem at
+// WP > 1.
 
 #include "banded_common.cuh"
 
@@ -24,107 +83,400 @@ namespace {
 
 using namespace lra;
 
+constexpr unsigned FULL = 0xffffffffu;
+
+// bytes of one warp's ballot words in a plane row (2 * CPT words, padded
+// to whole 16-byte stores)
 template <int CPT>
-__global__ void __launch_bounds__(1024)
-banded_global_kernel(const int8_t* __restrict__ q,
-                                     const int8_t* __restrict__ t,
-                                     const int* __restrict__ qlen,
-                                     const int* __restrict__ tlen,
-                                     const int* __restrict__ kband, int Q,
-                                     int T, int K, float m, float mm,
-                                     float indel, int8_t* __restrict__ arrows,
-                                     uint8_t* __restrict__ out, int L) {
-  extern __shared__ float rows[];  // two rows of band + 1
-  __shared__ float s_warp[32];
-  const int b = blockIdx.x;
-  Band p;
-  p.q = q + (size_t)b * Q;
-  p.t = t + (size_t)b * T;
-  p.Q = Q;
-  p.T = T;
-  p.K = K;
-  p.band = 2 * K + 1;
-  p.qlen = qlen[b];
-  p.tlen = tlen[b];
-  p.kband = kband[b];
-  p.m = m;
-  p.mm = mm;
-  p.indel = indel;
-  const int band = p.band;
-  int8_t* arr = arrows + (size_t)b * (T + 1) * band;
-  float* prev = rows;
-  float* cur = rows + band + 1;
+constexpr int seg_bytes() {
+  return 16 * ((CPT + 1) / 2);
+}
 
-  banded_row0<CPT>(p, prev, arr);
-  __syncthreads();
-  const int jmax = min(p.tlen, T);
-  for (int j = 1; j <= jmax; ++j) {
-    banded_row<CPT>(p, j, prev, cur, arr + (size_t)j * band, s_warp);
-    float* tmp = prev;
-    prev = cur;
-    cur = tmp;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Rows [lo, lo + n) of a plane (pitch P bytes, 16-byte aligned) into
+// shared memory, one warp, 16-byte copies; one commit group.
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* pl,
+                                           int lo, int n, int P, int lane) {
+  const int nv = n * P / 16;
+  const uint8_t* src = pl + (size_t)lo * P;
+  for (int v = lane; v < nv; v += 32) cp_async16(dst + 16 * v, src + 16 * v);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ unsigned long long lds_u64(unsigned addr) {
+  unsigned long long v;
+  asm volatile("ld.shared.u64 %0, [%1];\n" : "=l"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void group_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// Where band cell d's code lies in a plane row: (byte offset of its word
+// pair) << 5 | lane bit.
+template <int CPT, bool MULTI>
+__device__ __forceinline__ int cell_loc(int d) {
+  constexpr int SEGC = 32 * CPT;
+  const int w = MULTI ? d / SEGC : 0, r = d - w * SEGC;
+  const int l = r / CPT, c = r - l * CPT;
+  return ((w * seg_bytes<CPT>() + 8 * c) << 5) | l;
+}
+
+// The code at lane bit l of a word pair (bit 0 in the low word).
+__device__ __forceinline__ int code_at(unsigned long long v, int l) {
+  return (int)((v >> l) & 1ull) | (int)((v >> (l + 31)) & 2ull);
+}
+
+// One warp's codes of a plane row (code[c]: cell c of this lane) as
+// ballot words, stored by lanes 0 .. SEG/16 - 1, 16 bytes each.
+template <int CPT>
+__device__ __forceinline__ void store_row(uint8_t* dst, const int (&code)[CPT],
+                                          int lane) {
+  constexpr int NW = seg_bytes<CPT>() / 4;
+  unsigned w[NW];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    w[2 * c] = __ballot_sync(FULL, code[c] & 1);
+    w[2 * c + 1] = __ballot_sync(FULL, code[c] & 2);
   }
-  __syncthreads();
+#pragma unroll
+  for (int k = 2 * CPT; k < NW; ++k) w[k] = 0;
+#pragma unroll
+  for (int v = 0; v < NW / 4; ++v)
+    if (lane == v)
+      *(uint4*)(dst + 16 * v) =
+          make_uint4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]);
+}
 
-  // traceback (lra_tpu _traceback_ops_device): one op per step
-  if (threadIdx.x == 0) {
-    uint8_t* o = out + (size_t)b * (L / 4);
-    int i = p.qlen, j = p.tlen;
-    bool active = true;
-    unsigned byte = 0;
-    for (int s = 0; s < L; ++s) {
-      int a = -1;
-      if (active) {
-        const int d = i - j + K;
-        const bool ok = i >= 0 && j >= 0 && d >= 0 && d < band;
-        if (ok) {
-          const int jc = min(j, T);
-          a = arr[(size_t)jc * band + d];
-          if (a == DONE) a = -1;
+// The traceback (lra_tpu _traceback_ops_device) by one warp: lane 0 walks
+// from (qlen, tlen) over chunks of R plane rows in shared memory (buf: 2 *
+// R * P bytes) while the warp stages the next chunk; ops packed 2 bits
+// each into o[0, L/4), zero after the end.  The walk only moves to rows
+// j' <= j, so the chunk under its row is all it needs, and it enters each
+// chunk at the chunk's top row.  One step, as the reference: the cell (i,
+// j) off the band or the matrix, or a code 0, ends the walk; else the
+// code is the op, LEFT i - 1, DOWN j - 1, DIAG both.  The walker keeps the
+// band cell d and its place in the row, computes the places of d - 1 and
+// d + 1 while the shared-memory load is in flight, and with its own word
+// pair loads the pairs of the same cell in the 3 rows below (clamped to
+// the chunk), so that a run of DIAG takes up to 4 steps a turn.
+template <int CPT, bool MULTI>
+__device__ __forceinline__ void walk_back(const uint8_t* pl, uint8_t* buf,
+                                          uint8_t* o, int ql, int tl, int T,
+                                          int K, int band, int P, int R,
+                                          int L, int lane) {
+  int j = tl, d = ql - tl + K, s = 0;
+  int loc = cell_loc<CPT, MULTI>(d);
+  unsigned byte = 0;
+  bool active = true;
+  const int top = min(tl, T);
+  int lo = max(0, top - R + 1);
+  int cur = 0;
+  stage_rows(buf, pl, lo, top - lo + 1, P, lane);
+  for (;;) {
+    const int nlo = max(0, lo - R);
+    if (lo > 0)
+      stage_rows(buf + (cur ^ 1) * R * P, pl, nlo, lo - nlo, P, lane);
+    if (lo > 0) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      const unsigned rows =
+          (unsigned)__cvta_generic_to_shared(buf + cur * R * P);
+      while (s < L) {
+        const bool ok = j >= 0 && j + d >= K && (unsigned)d < (unsigned)band;
+        const int row = min(j, T);
+        if (ok && row < lo) break;  // the walk enters the next chunk
+        // an unconditional load (of the chunk's first pair off the band),
+        // then the mask; with it the cell's pairs in the 3 rows below
+        const int l = loc & 31;
+        const unsigned at = rows + (ok ? (row - lo) * P + (loc >> 5) : 0);
+        const int below = ok ? min(row - lo, 3) : 0;
+        const unsigned long long v0 = lds_u64(at);
+        const unsigned long long v1 = lds_u64(at - (below >= 1 ? P : 0));
+        const unsigned long long v2 = lds_u64(at - (below >= 2 ? 2 * P : 0));
+        const unsigned long long v3 = lds_u64(at - (below >= 3 ? 3 * P : 0));
+        const int locL = cell_loc<CPT, MULTI>(d - 1);
+        const int locR = cell_loc<CPT, MULTI>(d + 1);
+        const int a = ok ? code_at(v0, l) : 0;
+        if (a == 0) {
+          active = false;
+          break;
+        }
+        // DIAG steps down the diagonal (d and its place unchanged) while
+        // the rows below are in the chunk and hold DIAG too; at j > T the
+        // row is clamped and a step stays on row T
+        int n = 1;
+        if (a == DIAG && j <= T) {
+          const int room = min(below, L - s - 1);
+          n += (room >= 1 && code_at(v1, l) == DIAG) *
+               (1 + (room >= 2 && code_at(v2, l) == DIAG) *
+                        (1 + (room >= 3 && code_at(v3, l) == DIAG)));
+        }
+        j -= a == LEFT ? 0 : n;
+        d += (a == DOWN) - (a == LEFT);
+        loc = a == DOWN ? locR : (a == LEFT ? locL : loc);
+        for (int k = 0; k < n; ++k, ++s) {
+          byte |= (unsigned)a << (2 * (s & 3));
+          if ((s & 3) == 3) {
+            o[s >> 2] = (uint8_t)byte;
+            byte = 0;
+          }
         }
       }
-      active = a >= 0;
-      if (active) {
-        i -= (a == DIAG || a == LEFT);
-        j -= (a == DIAG || a == DOWN);
-        byte |= (unsigned)a << (2 * (s & 3));
-      }
-      if ((s & 3) == 3) {
-        o[s >> 2] = (uint8_t)byte;
-        byte = 0;
-      }
     }
+    const bool more = __shfl_sync(FULL, active && s < L, 0);
+    if (!more || lo == 0) break;
+    __syncwarp();  // lane 0 is done with buf[cur] before it is restaged
+    lo = nlo;
+    cur ^= 1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // the byte the walk ended in, then zeros to L/4
+  if (lane == 0 && (s & 3)) o[s >> 2] = (uint8_t)byte;
+  const int zs = __shfl_sync(FULL, (s + 3) >> 2, 0);
+  for (int k = zs + lane; k < L / 4; k += 32) o[k] = 0;
+  __syncwarp();
+}
+
+// What a warp of a WP > 1 group publishes each row (slot of row parity).
+struct Xch {
+  float agg;    // max over the warp's cells of base - indel * d
+  float g0;     // the same term of its first cell
+  int vlast;    // its last cell is valid
+  int vfirst;   // its first cell is valid
+};
+
+template <int CPT, bool MULTI>
+__global__ void __launch_bounds__(256, 2)
+banded_global_kernel(const int8_t* __restrict__ q,
+                     const int8_t* __restrict__ t,
+                     const int* __restrict__ qlen,
+                     const int* __restrict__ tlen,
+                     const int* __restrict__ kband,
+                     uint8_t* __restrict__ planes, uint8_t* __restrict__ out,
+                     int* __restrict__ counter, int B, int Q, int T, int K,
+                     float m, float mm, float indel, int WP, int P, int R,
+                     int walk) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int SEGC = 32 * CPT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = warp / WP;
+  const int wig = warp - g * WP;
+  const int gbytes = 2 * R * P + (MULTI ? 2 * WP * (int)sizeof(Xch) : 0) + 16;
+  uint8_t* buf = smem + g * gbytes;
+  Xch* xch = (Xch*)(buf + 2 * R * P);
+  int* slot = (int*)(buf + gbytes - 16);
+  const int band = 2 * K + 1;
+  const int L = Q + T;
+  const int d0 = (wig * 32 + lane) * CPT;
+  float indd[CPT];  // indel * d, exact
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) indd[c] = indel * (float)(d0 + c);
+
+  for (;;) {
+    int b;
+    if (MULTI) {
+      if (wig == 0 && lane == 0) *slot = atomicAdd(counter, 1);
+      group_sync(g + 1, 32 * WP);
+      b = *slot;
+      group_sync(g + 1, 32 * WP);
+    } else {
+      b = __shfl_sync(FULL, lane == 0 ? atomicAdd(counter, 1) : 0, 0);
+    }
+    if (b >= B) break;
+
+    const int8_t* qb = q + (size_t)b * Q;
+    const int8_t* tb = t + (size_t)b * T;
+    const int ql = qlen[b], tl = tlen[b], kb = kband[b];
+    uint8_t* pl = planes + (size_t)b * (T + 1) * P;
+    uint8_t* pwarp = pl + wig * seg_bytes<CPT>();
+
+    // row 0: S = indel * offs for 0 <= offs <= kband; LEFT for offs > 0
+    float S[CPT];
+    int code[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int offs = d0 + c - K;
+      const bool inb = offs >= -kb && offs <= kb;
+      S[c] = (offs >= 0 && inb) ? indel * (float)offs : NEGF;
+      code[c] = (inb && offs > 0) ? LEFT : 0;
+    }
+    store_row<CPT>(pwarp, code, lane);
+    // row j-1's S right of the warp's last cell (lane 31 reads it)
+    float Srn = NEGF;
+    if (MULTI && wig + 1 < WP) {
+      const int offs = (wig + 1) * SEGC - K;
+      Srn = (offs >= 0 && offs <= kb) ? indel * (float)offs : NEGF;
+    }
+    // q codes of the lane's cells at row 1: q[d - K]
+    int qc[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int qi = d0 + c - K;
+      qc[c] = (qi >= 0 && qi < Q) ? (int)__ldg(qb + qi) : QPAD;
+    }
+
+    const int jmax = min(tl, T);
+    int tj_next = jmax >= 1 ? (int)__ldg(tb) : 0;
+    for (int j = 1; j <= jmax; ++j) {
+      const int tj = tj_next;
+      if (j < jmax) tj_next = __ldg(tb + j);
+      // lane 31: its last cell's q code at row j + 1
+      int qn = QPAD;
+      const int qin = j + d0 + CPT - 1 - K;
+      if (lane == 31 && qin >= 0 && qin < Q) qn = __ldg(qb + qin);
+      // valid cells of row j: lo <= d <= hi (i >= 0, i <= qlen, |offs| <=
+      // kband); cell i = 0 at d = K - j
+      const int lo_rel = max(K - kb, K - j) - d0;
+      const int hi_rel = min(K + kb, ql - j + K) - d0;
+      const int i0_rel = K - j - d0;
+
+      float s_n = __shfl_down_sync(FULL, S[0], 1);
+      if (lane == 31) s_n = Srn;
+      float sDel[CPT], inc[CPT];
+      unsigned vmask = 0;
+      float run = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float s1 = c + 1 < CPT ? S[c + 1] : s_n;
+        const float sub = qc[c] == tj ? m : mm;
+        sDel[c] = s1 + indel;
+        float base = fmaxf(S[c] + sub, sDel[c]);
+        if (c == i0_rel) base = indel * (float)j;
+        const bool v = c >= lo_rel && c <= hi_rel;
+        vmask |= (v ? 1u : 0u) << c;
+        if (!v) base = NEGF;
+        run = fmaxf(run, base - indd[c]);
+        inc[c] = run;
+      }
+      // warp-inclusive scan of the lane totals (a lane below o reads its
+      // own total back, which max leaves unchanged)
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1)
+        run = fmaxf(run, __shfl_up_sync(FULL, run, o));
+      float ex = __shfl_up_sync(FULL, run, 1);
+      if (lane == 0) ex = -INFINITY;
+      float sl_first = NEGF;
+      if (MULTI) {
+        Xch* X = xch + (j & 1) * WP;
+        if (lane == 31) {
+          X[wig].agg = run;
+          X[wig].vlast = (vmask >> (CPT - 1)) & 1;
+        }
+        if (lane == 0) {
+          X[wig].g0 = inc[0];
+          X[wig].vfirst = vmask & 1;
+        }
+        group_sync(g + 1, 32 * WP);
+        float pre = -INFINITY;
+        for (int w = 0; w < wig; ++w) pre = fmaxf(pre, X[w].agg);
+        ex = fmaxf(ex, pre);
+        if (wig > 0)  // S of warp wig-1's last cell, as that warp has it
+          sl_first = X[wig - 1].vlast
+                         ? pre + indel * (float)(wig * SEGC - 1)
+                         : NEGF;
+        if (wig + 1 < WP) {  // warp wig+1's first cell, for row j + 1
+          const Xch& Y = X[wig + 1];
+          Srn = Y.vfirst ? fmaxf(Y.g0, fmaxf(pre, X[wig].agg)) +
+                               indel * (float)((wig + 1) * SEGC)
+                         : NEGF;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        S[c] = (vmask >> c) & 1 ? fmaxf(inc[c], ex) + indd[c] : NEGF;
+      float sl = __shfl_up_sync(FULL, S[CPT - 1], 1);
+      if (lane == 0) sl = sl_first;
+      // codes: LEFT if S == S_left + indel, else DOWN if S == sDel, else
+      // DIAG; DOWN at i = 0; 0 off the valid cells.  Bit 0 is set for
+      // LEFT and DIAG, bit 1 for DOWN and DIAG.
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float left = c > 0 ? S[c - 1] : sl;
+        const bool eqL = S[c] == left + indel, eqD = S[c] == sDel[c];
+        const bool i0 = c == i0_rel, v = (vmask >> c) & 1;
+        code[c] = v ? ((!i0 && (eqL || !eqD)) ? 1 : 0) |
+                          ((i0 || !eqL) ? 2 : 0)
+                    : 0;
+      }
+      store_row<CPT>(pwarp + (size_t)j * P, code, lane);
+      const int qs = __shfl_down_sync(FULL, qc[0], 1);
+#pragma unroll
+      for (int c = 0; c + 1 < CPT; ++c) qc[c] = qc[c + 1];
+      qc[CPT - 1] = lane == 31 ? qn : qs;
+    }
+    // the plane's global writes before the walking warp's cp.async reads
+    if (MULTI) group_sync(g + 1, 32 * WP);
+    else __syncwarp();
+    if (walk && wig == 0)
+      walk_back<CPT, MULTI>(pl, buf, out + (size_t)b * (L / 4), ql, tl, T,
+                            K, band, P, R, L, lane);
   }
 }
 
-template <int CPT>
+template <int CPT, bool MULTI>
 int launch(const void* q, const void* t, const void* qlen, const void* tlen,
-           const void* kband, int B, int Q, int T, int K, int m, int mm,
-           int indel, void* arrows, void* out, cudaStream_t stream) {
-  const int band = 2 * K + 1;
-  const int threads = ((band + CPT - 1) / CPT + 31) / 32 * 32;
-  const size_t smem = 2 * (band + 1) * sizeof(float);
-  banded_global_kernel<CPT><<<B, threads, smem, stream>>>(
+           const void* kband, void* planes, void* out, void* counter, int B,
+           int Q, int T, int K, int m, int mm, int indel, int WP, int PPC,
+           int P, int R, int smem, int walk, cudaStream_t stream) {
+  auto kern = banded_global_kernel<CPT, MULTI>;
+  const int threads = 32 * WP * PPC;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  // persistent grid: the blocks that fit on the card at once, at most one
+  // per PPC problems
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = min((B + PPC - 1) / PPC, per_sm * sms);
+  e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, threads, smem, stream>>>(
       (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
-      (const int*)kband, Q, T, K, (float)m, (float)mm, (float)indel,
-      (int8_t*)arrows, (uint8_t*)out, Q + T);
+      (const int*)kband, (uint8_t*)planes, (uint8_t*)out, (int*)counter, B, Q,
+      T, K, (float)m, (float)mm, (float)indel, WP, P, R, walk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, t: int8 [B, Q], [B, T]; qlen, tlen, kband: int32 [B];
-// arrows: int8 scratch [B, T+1, 2K+1]; out: uint8 [B, (Q+T)/4].
+// q, t: int8 [B, Q], [B, T]; qlen, tlen, kband: int32 [B]; planes: uint8
+// scratch [B, T+1, P]; out: uint8 [B, (Q+T)/4]; counter: one int32 of
+// scratch.  CPT, WP, PPC, P, R and smem from
+// ops/affine_kernel.py:global_plan; walk = 0 skips the traceback (a
+// timing of the forward rows alone; out is then not written).
 extern "C" int lra_banded_global_traced_packed(
     const void* q, const void* t, const void* qlen, const void* tlen,
-    const void* kband, void* arrows, void* out, int B, int Q, int T, int K,
-    int m, int mm, int indel, void* stream) {
-  const int band = 2 * K + 1;
-  if (band <= 1024)
-    return launch<1>(q, t, qlen, tlen, kband, B, Q, T, K, m, mm, indel,
-                     arrows, out, (cudaStream_t)stream);
-  if (band <= 2048)
-    return launch<2>(q, t, qlen, tlen, kband, B, Q, T, K, m, mm, indel,
-                     arrows, out, (cudaStream_t)stream);
+    const void* kband, void* planes, void* out, void* counter, int B, int Q,
+    int T, int K, int m, int mm, int indel, int CPT, int WP, int PPC, int P,
+    int R, int smem, int walk, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (B == 0) return 0;
+  if (2 * K + 1 > 32 * CPT * WP || P != 16 * ((CPT + 1) / 2) * WP ||
+      PPC < 1 || WP * PPC > 8 || R < 1)
+    return (int)cudaErrorInvalidValue;
+#define LRA_K4_LAUNCH(C, MULTI)                                              \
+  return launch<C, MULTI>(q, t, qlen, tlen, kband, planes, out, counter, B, \
+                          Q, T, K, m, mm, indel, WP, PPC, P, R, smem, walk, \
+                          st)
+  if (WP == 1 && CPT == 2) LRA_K4_LAUNCH(2, false);
+  if (WP == 1 && CPT == 5) LRA_K4_LAUNCH(5, false);
+  if (WP == 1 && CPT == 9) LRA_K4_LAUNCH(9, false);
+  if (WP > 1 && CPT == 9) LRA_K4_LAUNCH(9, true);
+#undef LRA_K4_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,9 @@ traceback walks from (qlen, tlen) on the device, one op per step, and
 the ops come back packed 2 bits each (LEFT/DOWN/DIAG = 1/2/3, 0 = end).
 
 ``banded_global_traced_packed`` and ``banded_refine_traced_packed``
-launch the CUDA kernels (csrc/banded_global.cu, csrc/banded_refine.cu)
-for CUDA tensors and run their plain torch twins (``*_plain``, a python
+launch the CUDA kernels (csrc/banded_global.cu, csrc/banded_refine.cu;
+``global_plan`` and ``refine_plan`` choose their launch plans) for CUDA
+tensors and run their plain torch twins (``*_plain``, a python
 loop over rows and over traceback steps) for CPU tensors.  All DP values
 are small integers in f32, so the two agree exactly.  The numpy mirrors
 below (``banded_global_np``, ``banded_refine_np`` and the host
@@ -160,37 +161,9 @@ def banded_global_traced_packed(q, t, qlen, tlen, K, m, mm, indel,
                          "of 4")
     kband = _kband_or_full(kband, q.shape[0], K, q.device)
     if q.device.type == "cuda":
-        return _banded_cuda("banded_global_traced_packed", "banded_global",
-                            "lra_banded_global_traced_packed", q, t, qlen,
-                            tlen, kband, K, m, mm, indel)
+        return _global_cuda(q, t, qlen, tlen, kband, K, m, mm, indel)
     return banded_global_traced_packed_plain(q, t, qlen, tlen, K, m, mm,
                                              indel, kband)
-
-
-_BANDED_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-
-
-def _banded_cuda(kernel, lib, fn, q, t, qlen, tlen, kband, K, m, mm,
-                 indel):
-    B, Q = q.shape
-    T = t.shape[1]
-    band = 2 * K + 1
-    if band > 2048:
-        raise ValueError(f"{kernel} kernel: band {band} > 2048")
-    _ext.check("q", q, torch.int8, (B, Q))
-    _ext.check("t", t, torch.int8, (B, T))
-    for name, x in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
-        _ext.check(name, x, torch.int32, (B,))
-    scratch = torch.empty((B, T + 1, band), dtype=torch.int8,
-                          device=q.device)
-    out = torch.empty((B, (Q + T) // 4), dtype=torch.uint8, device=q.device)
-    if B == 0:
-        return out
-    p = _ext.ptr
-    _ext.launch(kernel, lib, fn, _BANDED_ARGS, p(q), p(t), p(qlen), p(tlen),
-                p(kband), p(scratch), p(out), B, Q, T, K, int(m), int(mm),
-                int(indel))
-    return out
 
 
 def unpack_ops(packed: np.ndarray, mark_term: bool = True) -> np.ndarray:
@@ -472,39 +445,72 @@ def banded_refine_traced_packed(q, t, qlen, tlen, K, m, mm, indel,
                                              indel, kband)
 
 
-_REFINE_CPT = (2, 5, 9)     # cells per lane of the kernel's instances
-_REFINE_CTA_WARPS = 8       # warps per block when a bucket fills the card
-_REFINE_ROWS = 16           # plane rows per traceback chunk, full buckets
-_REFINE_CHUNK_BYTES = 32768  # traceback chunk, one problem a block
+_CPT = (2, 5, 9)            # cells per lane of the kernels' instances
+_CTA_WARPS = 8              # warps per block when a bucket fills the card
+_REFINE_ROWS = 16           # K5: plane rows per traceback chunk, full buckets
+_CHUNK_BYTES = 32768        # traceback chunk, one problem a block
+_GLOBAL_FULL_CHUNK_BYTES = 2048  # K4: traceback chunk, full buckets
 SMEM_MAX = 232448           # shared memory a block may use on sm_90
+
+
+def _tier(K: int) -> tuple:
+    """(CPT, WP) of K4's and K5's kernels for a band of 2K+1 cells: the
+    fewest warps per problem, CPT 9 once one warp's 288 cells hold the
+    band, WP * 32 * CPT >= band."""
+    band = 2 * K + 1
+    cpt = next((c for c in _CPT if 32 * c >= band), _CPT[-1])
+    return cpt, -(-band // (32 * cpt))
+
+
+def _per_block(wp: int, B: int | None, sms: int) -> int:
+    """Problems per block: 8 / WP when the bucket gives every SM a block
+    of 8 warps, else one (B = None counts as small), so that a small
+    bucket's blocks spread over all SMs."""
+    full = B is not None and B * wp >= _CTA_WARPS * sms
+    return max(1, _CTA_WARPS // wp) if full else 1
+
+
+def _chunk_rows(P: int, budget: int) -> int:
+    return max(16, min(64, budget // P))
 
 
 def refine_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
     """Launch plan of csrc/banded_refine.cu for B problems with a band of
-    2K+1 cells on a card of `sms` SMs: CPT cells per lane, WP warps per
-    problem (the fewest: CPT 9 once one warp's 288 cells hold the band;
-    WP * 32 * CPT >= band), PPC problems per block, the plane pitch P =
-    32 * CPT * WP bytes, R plane rows per traceback chunk, the dynamic
+    2K+1 cells on a card of `sms` SMs: CPT cells per lane and WP warps per
+    problem (_tier), PPC problems per block (_per_block), the plane pitch
+    P = 32 * CPT * WP bytes, R plane rows per traceback chunk, the dynamic
     shared memory in bytes (per problem: two chunks, the WP > 1 exchange
     slots, the problem index) and threads per block.  The grid is
     persistent: one block per SM slot, each group of warps taking the
     next problem from an atomic counter.
 
-    A bucket that gives every SM a block of 8 warps gets 8 / WP problems
-    per block and chunks of 16 rows (other warps' rows hide the walk's
-    loads); a smaller one (B = None counts as small) one problem per
-    block, so that its blocks spread over all SMs, and chunks of up to 32
-    KB (16-64 rows), so that the walk, which bounds such a bucket, runs
-    a chunk ahead of its loads."""
-    band = 2 * K + 1
-    cpt = next((c for c in _REFINE_CPT if 32 * c >= band), _REFINE_CPT[-1])
-    wp = -(-band // (32 * cpt))
-    full = B is not None and B * wp >= _REFINE_CTA_WARPS * sms
-    ppc = max(1, _REFINE_CTA_WARPS // wp) if full else 1
+    A full bucket gets chunks of 16 rows (other warps' rows hide the
+    walk's loads); one problem a block chunks of up to 32 KB (16-64
+    rows), so that the walk, which bounds such a bucket, runs a chunk
+    ahead of its loads."""
+    cpt, wp = _tier(K)
+    ppc = _per_block(wp, B, sms)
     P = 32 * cpt * wp
-    R = (_REFINE_ROWS if ppc > 1
-         else max(16, min(64, _REFINE_CHUNK_BYTES // P)))
+    R = _REFINE_ROWS if ppc > 1 else _chunk_rows(P, _CHUNK_BYTES)
     group = 2 * R * P + (64 * wp if wp > 1 else 0) + 16
+    return {"CPT": cpt, "WP": wp, "PPC": ppc, "P": P, "R": R,
+            "smem": ppc * group, "threads": 32 * wp * ppc}
+
+
+def global_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
+    """Launch plan of csrc/banded_global.cu, as refine_plan's: the same
+    tiers and problems per block; the plane pitch P = 16 * ceil(CPT / 2)
+    * WP bytes (each warp's 2 * CPT ballot words of 2-bit codes, padded
+    to 16-byte stores); R plane rows per traceback chunk (16-64: 2 KB
+    in a full bucket, 32 KB with one problem a block); the dynamic
+    shared memory (per problem: two chunks, the WP > 1 exchange slots,
+    the problem index) and threads per block."""
+    cpt, wp = _tier(K)
+    ppc = _per_block(wp, B, sms)
+    P = 16 * ((cpt + 1) // 2) * wp
+    R = _chunk_rows(P, _GLOBAL_FULL_CHUNK_BYTES if ppc > 1
+                    else _CHUNK_BYTES)
+    group = 2 * R * P + (32 * wp if wp > 1 else 0) + 16
     return {"CPT": cpt, "WP": wp, "PPC": ppc, "P": P, "R": R,
             "smem": ppc * group, "threads": 32 * wp * ppc}
 
@@ -514,19 +520,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_REFINE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
+_PLANNED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
 
 
-def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
-                 plan=None):
-    """K5 on the card with refine_plan's plan for this bucket (or the
-    one given).  walk=False skips the traceback (a timing of the forward
-    rows alone; the output is then not written)."""
+def _planned_cuda(kernel, lib, plan_fn, q, t, qlen, tlen, kband, K, m, mm,
+                  indel, walk, plan):
+    """K4 or K5 (`kernel`, from lib<lib>.so) on the card with plan_fn's
+    plan for this bucket (or the one given)."""
     B, Q = q.shape
     T = t.shape[1]
     if 2 * K + 1 > 2048:
-        raise ValueError(f"banded_refine_traced_packed kernel: band "
-                         f"{2 * K + 1} > 2048")
+        raise ValueError(f"{kernel} kernel: band {2 * K + 1} > 2048")
     _ext.check("q", q, torch.int8, (B, Q))
     _ext.check("t", t, torch.int8, (B, T))
     for name, x in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
@@ -535,18 +539,36 @@ def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
     if B == 0:
         return out
     if plan is None:
-        plan = refine_plan(K, B, _sm_count(q.device.index or 0))
+        plan = plan_fn(K, B, _sm_count(q.device.index or 0))
     scratch = torch.empty((B, T + 1, plan["P"]), dtype=torch.int8,
                           device=q.device)
     counter = torch.empty(1, dtype=torch.int32, device=q.device)
     p = _ext.ptr
-    _ext.launch("banded_refine_traced_packed", "banded_refine",
-                "lra_banded_refine_traced_packed", _REFINE_ARGS, p(q), p(t),
+    _ext.launch(kernel, lib, f"lra_{kernel}", _PLANNED_ARGS, p(q), p(t),
                 p(qlen), p(tlen), p(kband), p(scratch), p(out), p(counter),
                 B, Q, T, K, int(m), int(mm), int(indel), plan["CPT"],
                 plan["WP"], plan["PPC"], plan["P"], plan["R"], plan["smem"],
                 int(walk))
     return out
+
+
+def _global_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
+                 plan=None):
+    """K4 on the card with global_plan's plan for this bucket (or the
+    one given).  walk=False skips the traceback (a timing of the forward
+    rows alone; the output is then not written)."""
+    return _planned_cuda("banded_global_traced_packed", "banded_global",
+                         global_plan, q, t, qlen, tlen, kband, K, m, mm,
+                         indel, walk, plan)
+
+
+def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
+                 plan=None):
+    """K5 on the card with refine_plan's plan for this bucket (or the
+    one given); walk=False as _global_cuda's."""
+    return _planned_cuda("banded_refine_traced_packed", "banded_refine",
+                         refine_plan, q, t, qlen, tlen, kband, K, m, mm,
+                         indel, walk, plan)
 
 
 def banded_refine_np(q, t, qlen, tlen, K, m, mm, indel, kband):

@@ -108,11 +108,41 @@ def test_refine_kernel_matches_plain(cuda_device, B, S, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K", [
+    (13, 16, 30), (8, 64, 30), (13, 128, 64), (13, 256, 128),
+    (13, 200, 100), (9, 512, 256), (9, 1024, 512), (7, 2048, 700),
+    (7, 2048, 1023)])
+def test_global_kernel_edges_match_plain(cuda_device, B, S, K):
+    """K4 on the buckets of test_refine_kernel_matches_plain (every K
+    tier, off-tier K, S 16-2048, the edge problems of
+    sim.refine_problems), through the wrapper and with each of the two
+    launch plans forced: packed ops exactly equal to the plain twin."""
+    q, t, ql, tl, kb = [torch.from_numpy(a).to(cuda_device) for a in
+                        refine_problems(np.random.default_rng(S + K), B, S,
+                                        K)]
+    ref = ak.banded_global_traced_packed_plain(q, t, ql, tl, K, M, MM, IND,
+                                               kb)
+    got = ak.banded_global_traced_packed(q, t, ql, tl, K, M, MM, IND,
+                                         kband=kb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool((ref != 0).any())
+    for plan in (ak.global_plan(K, 1), ak.global_plan(K, 1 << 20)):
+        got = ak._global_cuda(q, t, ql, tl, kb, K, M, MM, IND, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), plan
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel,B,S,K", [
-    ("global", 8, 64, 30), ("global", 4, 256, 128), ("global", 2, 512, 512),
+    ("global", 8, 64, 30), ("global", 8, 128, 64), ("global", 4, 256, 128),
+    ("global", 4, 200, 100), ("global", 3, 512, 256),
+    ("global", 2, 512, 512), ("global", 2, 1024, 1023),
     ("refine", 8, 64, 30), ("refine", 4, 256, 64),
     ("rowsync", 16, 64, 30), ("rowsync", 8, 512, 30)])
 def test_banded_kernels_match_plain(cuda_device, kernel, B, S, K):
+    """K4 ("global") at every K tier and off-tier K, also with each of
+    its two launch plans forced; K5 and the row-sync kernel (P1)."""
     q, t, ql, tl, kb = gap_batch(np.random.default_rng(S + K), B, S, K,
                                  cuda_device)
     fn, plain = {
@@ -126,6 +156,12 @@ def test_banded_kernels_match_plain(cuda_device, kernel, B, S, K):
     ref = plain(q, t, ql, tl, K, M, MM, IND, kb)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+    if kernel == "global":
+        for plan in (ak.global_plan(K, 1), ak.global_plan(K, 1 << 20)):
+            got = ak._global_cuda(q, t, ql, tl, kb, K, M, MM, IND,
+                                  plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), plan
 
 
 def one_gap_batch(rng, B, K, D, query_longer, max_gap, dev):

@@ -21,7 +21,7 @@ def test_refine_plan_covers_every_band(B):
         band = 2 * K + 1
         p = ak.refine_plan(K, B)
         assert p["WP"] * 32 * p["CPT"] >= band, K
-        assert p["CPT"] in ak._REFINE_CPT and 1 <= p["WP"] <= 8, K
+        assert p["CPT"] in ak._CPT and 1 <= p["WP"] <= 8, K
         assert p["WP"] == 1 or p["CPT"] == 9, K
         assert p["P"] % 16 == 0 and p["P"] >= band, K
         assert p["P"] == 32 * p["CPT"] * p["WP"], K
