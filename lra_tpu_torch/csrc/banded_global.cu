@@ -77,6 +77,8 @@
 // memory only, PPC * (2 * R * P + 16) bytes plus 32 * WP per problem at
 // WP > 1.
 
+#include <mutex>
+
 #include "banded_common.cuh"
 
 namespace {
@@ -88,7 +90,7 @@ constexpr unsigned FULL = 0xffffffffu;
 // bytes of one warp's ballot words in a plane row (2 * CPT words, padded
 // to whole 16-byte stores)
 template <int CPT>
-constexpr int seg_bytes() {
+__host__ __device__ constexpr int seg_bytes() {
   return 16 * ((CPT + 1) / 2);
 }
 
@@ -114,6 +116,16 @@ __device__ __forceinline__ unsigned long long lds_u64(unsigned addr) {
   return v;
 }
 
+// 4 bytes of packed ops at p: one store where p is 4-byte aligned
+__device__ __forceinline__ void store4(uint8_t* p, unsigned w, bool aligned) {
+  if (aligned) {
+    *(unsigned*)p = w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[k] = (uint8_t)(w >> (8 * k));
+  }
+}
+
 __device__ __forceinline__ void group_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
@@ -133,17 +145,19 @@ __device__ __forceinline__ int code_at(unsigned long long v, int l) {
   return (int)((v >> l) & 1ull) | (int)((v >> (l + 31)) & 2ull);
 }
 
-// One warp's codes of a plane row (code[c]: cell c of this lane) as
-// ballot words, stored by lanes 0 .. SEG/16 - 1, 16 bytes each.
+// One warp's codes of a plane row (bit 0 and bit 1 of cell c of this
+// lane: lo[c], hi[c]) as ballot words, stored by lanes 0 .. SEG/16 - 1,
+// 16 bytes each.
 template <int CPT>
-__device__ __forceinline__ void store_row(uint8_t* dst, const int (&code)[CPT],
-                                          int lane) {
+__device__ __forceinline__ void store_row(uint8_t* dst,
+                                          const bool (&lo)[CPT],
+                                          const bool (&hi)[CPT], int lane) {
   constexpr int NW = seg_bytes<CPT>() / 4;
   unsigned w[NW];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
-    w[2 * c] = __ballot_sync(FULL, code[c] & 1);
-    w[2 * c + 1] = __ballot_sync(FULL, code[c] & 2);
+    w[2 * c] = __ballot_sync(FULL, lo[c]);
+    w[2 * c + 1] = __ballot_sync(FULL, hi[c]);
   }
 #pragma unroll
   for (int k = 2 * CPT; k < NW; ++k) w[k] = 0;
@@ -170,15 +184,17 @@ template <int CPT, bool MULTI>
 __device__ __forceinline__ void walk_back(const uint8_t* pl, uint8_t* buf,
                                           uint8_t* o, int ql, int tl, int T,
                                           int K, int band, int P, int R,
-                                          int L, int lane) {
+                                          int L, int lane, bool in_smem) {
   int j = tl, d = ql - tl + K, s = 0;
   int loc = cell_loc<CPT, MULTI>(d);
-  unsigned byte = 0;
+  // the ops of steps from 16 * (s / 16) on, 2 bits each, not yet stored
+  unsigned long long acc = 0;
+  const bool aligned = ((size_t)o & 3) == 0;
   bool active = true;
   const int top = min(tl, T);
-  int lo = max(0, top - R + 1);
+  int lo = in_smem ? 0 : max(0, top - R + 1);
   int cur = 0;
-  stage_rows(buf, pl, lo, top - lo + 1, P, lane);
+  if (!in_smem) stage_rows(buf, pl, lo, top - lo + 1, P, lane);
   for (;;) {
     const int nlo = max(0, lo - R);
     if (lo > 0)
@@ -211,24 +227,25 @@ __device__ __forceinline__ void walk_back(const uint8_t* pl, uint8_t* buf,
         }
         // DIAG steps down the diagonal (d and its place unchanged) while
         // the rows below are in the chunk and hold DIAG too; at j > T the
-        // row is clamped and a step stays on row T
-        int n = 1;
-        if (a == DIAG && j <= T) {
-          const int room = min(below, L - s - 1);
-          n += (room >= 1 && code_at(v1, l) == DIAG) *
-               (1 + (room >= 2 && code_at(v2, l) == DIAG) *
-                        (1 + (room >= 3 && code_at(v3, l) == DIAG)));
-        }
+        // row is clamped and a step stays on row T.  No branch: the loads
+        // of the rows below are issued with the cell's own.
+        const int room = a == DIAG && j <= T ? min(below, L - s - 1) : 0;
+        const int n = 1 + (room >= 1 && code_at(v1, l) == DIAG) *
+                              (1 + (room >= 2 && code_at(v2, l) == DIAG) *
+                                       (1 + (room >= 3 &&
+                                             code_at(v3, l) == DIAG)));
         j -= a == LEFT ? 0 : n;
         d += (a == DOWN) - (a == LEFT);
         loc = a == DOWN ? locR : (a == LEFT ? locL : loc);
-        for (int k = 0; k < n; ++k, ++s) {
-          byte |= (unsigned)a << (2 * (s & 3));
-          if ((s & 3) == 3) {
-            o[s >> 2] = (uint8_t)byte;
-            byte = 0;
-          }
+        // the n ops (n DIAG, or the one op a) into the accumulator; 16
+        // complete steps go out as their 4 bytes
+        const unsigned ops = a == DIAG ? (1u << (2 * n)) - 1 : a;
+        acc |= (unsigned long long)ops << (2 * (s & 15));
+        if ((s & 15) + n >= 16) {
+          store4(o + 4 * (s >> 4), (unsigned)acc, aligned);
+          acc >>= 32;
         }
+        s += n;
       }
     }
     const bool more = __shfl_sync(FULL, active && s < L, 0);
@@ -238,8 +255,10 @@ __device__ __forceinline__ void walk_back(const uint8_t* pl, uint8_t* buf,
     cur ^= 1;
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  // the byte the walk ended in, then zeros to L/4
-  if (lane == 0 && (s & 3)) o[s >> 2] = (uint8_t)byte;
+  // the bytes of the last, incomplete 16 steps, then zeros to L/4
+  if (lane == 0)
+    for (int k = 0; k < ((s & 15) + 3) >> 2; ++k)
+      o[4 * (s >> 4) + k] = (uint8_t)(acc >> (8 * k));
   const int zs = __shfl_sync(FULL, (s + 3) >> 2, 0);
   for (int k = zs + lane; k < L / 4; k += 32) o[k] = 0;
   __syncwarp();
@@ -273,66 +292,88 @@ banded_global_kernel(const int8_t* __restrict__ q,
   const int gbytes = 2 * R * P + (MULTI ? 2 * WP * (int)sizeof(Xch) : 0) + 16;
   uint8_t* buf = smem + g * gbytes;
   Xch* xch = (Xch*)(buf + 2 * R * P);
-  int* slot = (int*)(buf + gbytes - 16);
+  int* slot = (int*)(buf + gbytes - 16);  // two problem indices, by parity
   const int band = 2 * K + 1;
   const int L = Q + T;
   const int d0 = (wig * 32 + lane) * CPT;
+  // the plane of a problem lives in shared memory when all its rows fit
+  // in the group's two chunk buffers (no global plane, no staging)
+  const bool in_smem = T + 1 <= 2 * R;
   float indd[CPT];  // indel * d, exact
 #pragma unroll
   for (int c = 0; c < CPT; ++c) indd[c] = indel * (float)(d0 + c);
 
-  for (;;) {
-    int b;
-    if (MULTI) {
-      if (wig == 0 && lane == 0) *slot = atomicAdd(counter, 1);
-      group_sync(g + 1, 32 * WP);
-      b = *slot;
-      group_sync(g + 1, 32 * WP);
-    } else {
-      b = __shfl_sync(FULL, lane == 0 ? atomicAdd(counter, 1) : 0, 0);
+  // The next problem, one ahead: the group takes its index from the
+  // counter when it starts a problem and loads its lengths, row-1 q codes
+  // (q[d - K]) and first t code before the walk, so that neither round
+  // trip stands between two problems.
+  int nql = 0, ntl = 0, nkb = 0, nt0 = 0, nqc[CPT];
+  auto prefetch = [&](int nb) {
+    if (nb >= B) return;
+    nql = __ldg(qlen + nb);
+    ntl = __ldg(tlen + nb);
+    nkb = __ldg(kband + nb);
+    nt0 = T > 0 ? (int)__ldg(t + (size_t)nb * T) : 0;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int qi = d0 + c - K;
+      nqc[c] = (unsigned)qi < (unsigned)Q ? (int)__ldg(q + (size_t)nb * Q + qi)
+                                          : QPAD;
     }
-    if (b >= B) break;
+  };
+  int b;
+  if (MULTI) {
+    if (wig == 0 && lane == 0) slot[0] = atomicAdd(counter, 1);
+    group_sync(g + 1, 32 * WP);
+    b = slot[0];
+  } else {
+    b = __shfl_sync(FULL, lane == 0 ? atomicAdd(counter, 1) : 0, 0);
+  }
+  prefetch(b);
 
+  for (int it = 1; b < B; ++it) {
     const int8_t* qb = q + (size_t)b * Q;
     const int8_t* tb = t + (size_t)b * T;
-    const int ql = qlen[b], tl = tlen[b], kb = kband[b];
-    uint8_t* pl = planes + (size_t)b * (T + 1) * P;
-    uint8_t* pwarp = pl + wig * seg_bytes<CPT>();
+    const int ql = nql, tl = ntl, kb = nkb;
+    int qc[CPT];  // q codes of the lane's cells at row j
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) qc[c] = nqc[c];
+    int tj_next = nt0;
+    // the next problem's index, in flight during this problem's rows
+    const int ticket = wig == 0 && lane == 0 ? atomicAdd(counter, 1) : 0;
+    uint8_t* pl = in_smem ? buf : planes + (size_t)b * (T + 1) * P;
+    uint8_t* prow = pl + wig * seg_bytes<CPT>();  // this warp's row j words
 
     // row 0: S = indel * offs for 0 <= offs <= kband; LEFT for offs > 0
     float S[CPT];
-    int code[CPT];
+    bool lo[CPT], hi[CPT];  // the code bits of the lane's cells
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int offs = d0 + c - K;
       const bool inb = offs >= -kb && offs <= kb;
       S[c] = (offs >= 0 && inb) ? indel * (float)offs : NEGF;
-      code[c] = (inb && offs > 0) ? LEFT : 0;
+      lo[c] = inb && offs > 0;
+      hi[c] = false;
     }
-    store_row<CPT>(pwarp, code, lane);
+    store_row<CPT>(prow, lo, hi, lane);
     // row j-1's S right of the warp's last cell (lane 31 reads it)
     float Srn = NEGF;
     if (MULTI && wig + 1 < WP) {
       const int offs = (wig + 1) * SEGC - K;
       Srn = (offs >= 0 && offs <= kb) ? indel * (float)offs : NEGF;
     }
-    // q codes of the lane's cells at row 1: q[d - K]
-    int qc[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int qi = d0 + c - K;
-      qc[c] = (qi >= 0 && qi < Q) ? (int)__ldg(qb + qi) : QPAD;
-    }
 
     const int jmax = min(tl, T);
-    int tj_next = jmax >= 1 ? (int)__ldg(tb) : 0;
+    float ij = 0.f;  // indel * j, exact
     for (int j = 1; j <= jmax; ++j) {
       const int tj = tj_next;
       if (j < jmax) tj_next = __ldg(tb + j);
+      ij += indel;
+      prow += P;
       // lane 31: its last cell's q code at row j + 1
       int qn = QPAD;
       const int qin = j + d0 + CPT - 1 - K;
-      if (lane == 31 && qin >= 0 && qin < Q) qn = __ldg(qb + qin);
+      if (lane == 31 && (unsigned)qin < (unsigned)Q) qn = __ldg(qb + qin);
       // valid cells of row j: lo <= d <= hi (i >= 0, i <= qlen, |offs| <=
       // kband); cell i = 0 at d = K - j
       const int lo_rel = max(K - kb, K - j) - d0;
@@ -350,7 +391,7 @@ banded_global_kernel(const int8_t* __restrict__ q,
         const float sub = qc[c] == tj ? m : mm;
         sDel[c] = s1 + indel;
         float base = fmaxf(S[c] + sub, sDel[c]);
-        if (c == i0_rel) base = indel * (float)j;
+        if (c == i0_rel) base = ij;
         const bool v = c >= lo_rel && c <= hi_rel;
         vmask |= (v ? 1u : 0u) << c;
         if (!v) base = NEGF;
@@ -403,23 +444,74 @@ banded_global_kernel(const int8_t* __restrict__ q,
         const float left = c > 0 ? S[c - 1] : sl;
         const bool eqL = S[c] == left + indel, eqD = S[c] == sDel[c];
         const bool i0 = c == i0_rel, v = (vmask >> c) & 1;
-        code[c] = v ? ((!i0 && (eqL || !eqD)) ? 1 : 0) |
-                          ((i0 || !eqL) ? 2 : 0)
-                    : 0;
+        lo[c] = v && !i0 && (eqL || !eqD);
+        hi[c] = v && (i0 || !eqL);
       }
-      store_row<CPT>(pwarp + (size_t)j * P, code, lane);
+      store_row<CPT>(prow, lo, hi, lane);
       const int qs = __shfl_down_sync(FULL, qc[0], 1);
 #pragma unroll
       for (int c = 0; c + 1 < CPT; ++c) qc[c] = qc[c + 1];
       qc[CPT - 1] = lane == 31 ? qn : qs;
     }
-    // the plane's global writes before the walking warp's cp.async reads
-    if (MULTI) group_sync(g + 1, 32 * WP);
-    else __syncwarp();
+    // the plane's writes before the walking warp's reads; the next
+    // problem's index (slot of parity it: the other one may still be read)
+    int nb;
+    if (MULTI) {
+      if (wig == 0 && lane == 0) slot[it & 1] = ticket;
+      group_sync(g + 1, 32 * WP);
+      nb = slot[it & 1];
+    } else {
+      __syncwarp();
+      nb = __shfl_sync(FULL, ticket, 0);
+    }
+    prefetch(nb);
     if (walk && wig == 0)
       walk_back<CPT, MULTI>(pl, buf, out + (size_t)b * (L / 4), ql, tl, T,
-                            K, band, P, R, L, lane);
+                            K, band, P, R, L, lane, in_smem);
+    b = nb;
   }
+}
+
+// The blocks of an instance that fit on the card at once (threads and
+// dynamic shared memory a block), after raising the instance's shared
+// memory limit on the device (never lowering it: a kept answer may be
+// for a larger block); the last 8 answers are kept, so that a launch
+// costs the host no query it has made before.
+template <int CPT, bool MULTI>
+cudaError_t resident_blocks(int dev, int threads, int smem, int* blocks) {
+  struct Entry {
+    int dev, threads, smem, blocks;
+  };
+  static Entry seen[8];
+  static int n = 0, raised[64] = {0};
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int k = 0; k < n && k < 8; ++k)
+    if (seen[k].dev == dev && seen[k].threads == threads &&
+        seen[k].smem == smem) {
+      *blocks = seen[k].blocks;
+      return cudaSuccess;
+    }
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  auto kern = banded_global_kernel<CPT, MULTI>;
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaSuccess;
+  if (smem > raised[dev]) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    raised[dev] = smem;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  seen[n % 8] = {dev, threads, smem, per_sm * sms};
+  ++n;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
 }
 
 template <int CPT, bool MULTI>
@@ -429,20 +521,15 @@ int launch(const void* q, const void* t, const void* qlen, const void* tlen,
            int P, int R, int smem, int walk, cudaStream_t stream) {
   auto kern = banded_global_kernel<CPT, MULTI>;
   const int threads = 32 * WP * PPC;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
   // persistent grid: the blocks that fit on the card at once, at most one
   // per PPC problems
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int dev = 0, fit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = min((B + PPC - 1) / PPC, per_sm * sms);
+  if ((e = resident_blocks<CPT, MULTI>(dev, threads, smem, &fit)) !=
+      cudaSuccess)
+    return (int)e;
+  const int grid = min((B + PPC - 1) / PPC, fit);
   e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, threads, smem, stream>>>(

@@ -118,17 +118,30 @@ def _lib(name: str):
         return lib
 
 
+_entries: dict = {}
+
+
+def _entry(lib: str, fn: str, argtypes: list):
+    """C entry point ``fn`` of lib<lib>.so with its signature set (once)."""
+    key = (lib, fn)
+    f = _entries.get(key)
+    if f is None:
+        f = getattr(_lib(lib), fn)
+        f.restype = ctypes.c_int
+        f.argtypes = list(argtypes) + [ctypes.c_void_p]
+        with _lock:
+            _entries[key] = f
+    return f
+
+
 def launch(kernel: str, lib: str, fn: str, argtypes: list, *args) -> None:
     """Call C entry point ``fn`` of lib<lib>.so (last argument: the
     current CUDA stream, appended here) and raise on a launch error."""
-    L = _lib(lib)
-    f = getattr(L, fn)
-    f.restype = ctypes.c_int
-    f.argtypes = list(argtypes) + [ctypes.c_void_p]
-    rc = f(*args, torch.cuda.current_stream().cuda_stream)
+    rc = _entry(lib, fn, argtypes)(*args,
+                                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}: "
-                           f"{L.lra_errstr(rc).decode()})")
+                           f"{_lib(lib).lra_errstr(rc).decode()})")
     LAUNCHES[kernel] += 1
 
 

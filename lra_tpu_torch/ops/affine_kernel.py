@@ -521,12 +521,22 @@ def _sm_count(index: int) -> int:
 
 
 _PLANNED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
+_PLAN_KEYS = ("CPT", "WP", "PPC", "P", "R", "smem")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(plan_fn, K: int, B: int, sms: int) -> tuple:
+    plan = plan_fn(K, B, sms)
+    return tuple(plan[k] for k in _PLAN_KEYS)
 
 
 def _planned_cuda(kernel, lib, plan_fn, q, t, qlen, tlen, kband, K, m, mm,
-                  indel, walk, plan):
+                  indel, walk, plan, smem_plane=False):
     """K4 or K5 (`kernel`, from lib<lib>.so) on the card with plan_fn's
-    plan for this bucket (or the one given)."""
+    plan for this bucket (or the one given).  One scratch allocation: the
+    problem counter (16 bytes), then the plane [B, T+1, P], left out when
+    the kernel keeps a problem's plane in shared memory (smem_plane: all
+    T+1 rows fit in its two chunk buffers)."""
     B, Q = q.shape
     T = t.shape[1]
     if 2 * K + 1 > 2048:
@@ -538,16 +548,16 @@ def _planned_cuda(kernel, lib, plan_fn, q, t, qlen, tlen, kband, K, m, mm,
     out = torch.empty((B, (Q + T) // 4), dtype=torch.uint8, device=q.device)
     if B == 0:
         return out
-    if plan is None:
-        plan = plan_fn(K, B, _sm_count(q.device.index or 0))
-    scratch = torch.empty((B, T + 1, plan["P"]), dtype=torch.int8,
+    args = (_plan_args(plan_fn, K, B, _sm_count(q.device.index or 0))
+            if plan is None else tuple(plan[k] for k in _PLAN_KEYS))
+    P, R = args[3], args[4]
+    rows = 0 if smem_plane and T + 1 <= 2 * R else T + 1
+    scratch = torch.empty(16 + B * rows * P, dtype=torch.uint8,
                           device=q.device)
-    counter = torch.empty(1, dtype=torch.int32, device=q.device)
     p = _ext.ptr
     _ext.launch(kernel, lib, f"lra_{kernel}", _PLANNED_ARGS, p(q), p(t),
-                p(qlen), p(tlen), p(kband), p(scratch), p(out), p(counter),
-                B, Q, T, K, int(m), int(mm), int(indel), plan["CPT"],
-                plan["WP"], plan["PPC"], plan["P"], plan["R"], plan["smem"],
+                p(qlen), p(tlen), p(kband), p(scratch) + 16, p(out),
+                p(scratch), B, Q, T, K, int(m), int(mm), int(indel), *args,
                 int(walk))
     return out
 
@@ -559,7 +569,7 @@ def _global_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
     rows alone; the output is then not written)."""
     return _planned_cuda("banded_global_traced_packed", "banded_global",
                          global_plan, q, t, qlen, tlen, kband, K, m, mm,
-                         indel, walk, plan)
+                         indel, walk, plan, smem_plane=True)
 
 
 def _refine_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, walk=True,
