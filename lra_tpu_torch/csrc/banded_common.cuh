@@ -1,5 +1,7 @@
 // Shared pieces of the banded DP kernels (banded_global.cu, rowsync.cu,
-// banded_refine.cu): op codes, NEGF, the q pad code; and for rowsync.cu
+// banded_refine.cu): op codes, NEGF, the q pad code; the cp.async
+// staging of plane rows and the named barrier of K4 and K5; and for
+// rowsync.cu
 // (P1) a block-wide prefix-max scan and the block-level forward row of
 // the linear-gap banded global DP.  banded_global.cu (K4) computes the
 // same row at warp level with its own code; chip_smoke.py holds P1's
@@ -29,6 +31,28 @@ namespace lra {
 constexpr float NEGF = -1.0e30f;
 constexpr int DONE = 0, LEFT = 1, DOWN = 2, DIAG = 3;
 constexpr int QPAD = 5;  // q code outside [0, Q): never equals a t code
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Rows [lo, lo + n) of a plane (pitch P bytes, 16-byte aligned) into
+// shared memory, one warp, 16-byte copies; one commit group.
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const void* pl,
+                                           int lo, int n, int P, int lane) {
+  const int nv = n * P / 16;
+  const uint8_t* src = (const uint8_t*)pl + (size_t)lo * P;
+  for (int v = lane; v < nv; v += 32) cp_async16(dst + 16 * v, src + 16 * v);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// A named barrier of nthreads threads (whole warps).
+__device__ __forceinline__ void group_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
 
 // Inclusive and exclusive prefix max over the CTA's cells, NV arrays at
 // once.  x[v][c] is the value of cell t*CPT + c; on return incl holds the

@@ -13,13 +13,16 @@
 // (qlen, tlen), one per step, packed 4 to a byte (LEFT/DOWN/DIAG =
 // 1/2/3, 0 after the end).
 //
-// Bound: a full bucket (the main path's B=65536 S=16 K=30) is bound by
+// Bound: every K4 launch on chip_smoke.py's paths is K=30 (band 61), most
+// of them buckets of thousands of problems of 1-33 rows (the main path's:
+// B=65536 S=16, 7.4 rows a problem on average).  Such a bucket is bound by
 // instruction issue: chip_smoke.py's dp_bound counts 10 operations per
-// band cell, and the kernel spends about 40 warp instructions per lane
-// cell pair and row at CPT 2 (shuffles, the scan, the ballots).  A
-// bucket of few long problems (K up to 512, S up to 2048) is bound by
-// the latency of its longest problem's rows and walk.  The 2-bit plane
-// written and read back is the memory floor (16 B a row at K=30).
+// band cell, and the kernel spends ~120 warp instructions a row at CPT 2
+// (the cells, a 5-step shuffle scan, 4 ballots, a 16-byte store), ~70 a
+// walk turn and ~150 a problem.  A bucket of few long problems is bound
+// by the latency of one warp's rows and walk.  The 2-bit plane is the
+// memory floor: 16 B a row at K=30, and none at all in device memory
+// while a problem's rows fit in shared memory.
 //
 // Design (ops/affine_kernel.py:global_plan chooses the tier):
 // - A problem's band row lives in WP warps; lane l of warp w owns the CPT
@@ -29,7 +32,9 @@
 //   PPC = 8 / WP problems when the bucket gives every SM a block of 8
 //   warps, else one, so that a small bucket spreads over all SMs.
 //   Persistent grid: one block per SM slot, each group of WP warps
-//   taking the next problem from an atomic counter.
+//   taking the next problem from an atomic counter, one problem ahead:
+//   the index comes back during the current problem's rows and the next
+//   problem's lengths and first codes load during its walk.
 // - Row j-1's S[d+1] comes by __shfl_down_sync, the left neighbour of a
 //   lane's first cell in row j by __shfl_up_sync, and the q codes move
 //   one cell left a row by the same shuffle (lane 31 loads its last
@@ -43,20 +48,23 @@
 //   neighbour S (warp w-1's last cell) and, for the next row, its last
 //   cell's right neighbour S (warp w+1's first cell), each by the same
 //   operations on the same operands as the warp that owns the cell.
-// - The arrow plane is a global scratch [B, T+1, P] of 2-bit codes (0
-//   stop: DONE or off the valid cells; 1 LEFT, 2 DOWN, 3 DIAG; the walk
-//   treats DONE and invalid alike).  Each warp writes a row as 2 * CPT
-//   __ballot_sync words, word 2c holding bit 0 and word 2c + 1 bit 1 of
-//   cell c of every lane (bit l: lane l), padded to 16-byte stores:
-//   SEG = 16 * ceil(CPT / 2) bytes a warp, P = SEG * WP (16 B a row at
-//   K=30, 80 at K=128; the int8 plane of the old design was band bytes).
-// - After its rows, warp 0 of the group walks back (walk_back): chunks of
-//   R plane rows go to shared memory with 16-byte cp.async copies, the
-//   next chunk in flight while lane 0 walks the current one with the
-//   reference's step rule (d = i - j + K, row min(j, T), stop off the
-//   band), a cell's code read as one 8-byte load of its word pair; a run
-//   of DIAG takes up to 4 rows a turn.  Packed bytes go out as lane 0
-//   completes them, zeros after the end by the whole warp.
+// - The arrow plane holds 2-bit codes (0 stop: DONE or off the valid
+//   cells; 1 LEFT, 2 DOWN, 3 DIAG; the walk treats DONE and invalid
+//   alike).  Each warp writes a row as 2 * CPT __ballot_sync words, word
+//   2c holding bit 0 and word 2c + 1 bit 1 of cell c of every lane (bit
+//   l: lane l), padded to 16-byte stores: SEG = 16 * ceil(CPT / 2) bytes
+//   a warp, pitch P = SEG * WP (16 B a row at K=30, 80 at K=128; the old
+//   int8 plane was 2K+1 bytes).  When all T+1 rows fit in the group's two
+//   chunk buffers (T < 2R: the pipeline's K=30 buckets up to S=64) the
+//   plane lives there; else in a global scratch [B, T+1, P].
+// - After its rows, warp 0 of the group walks back (walk_back): from
+//   shared memory, or over chunks of R rows of the global plane staged
+//   with 16-byte cp.async copies, the next chunk in flight while lane 0
+//   walks the current one.  The reference's step rule (d = i - j + K,
+//   row min(j, T), stop off the band); a cell's code is one 8-byte load
+//   of its word pair, and a run of DIAG takes up to 4 rows a turn.  The
+//   ops gather in a 64-bit register and go out 4 bytes per 16 steps;
+//   zeros after the end by the whole warp.
 //
 // Exactness (the plain twin is bit-exact against lra_tpu; this kernel
 // against the twin):
@@ -73,9 +81,10 @@
 // - Rows are computed for j <= min(tlen, T); the walk starts at row
 //   min(tlen, T) and only moves down, so it reads written rows only.
 //
-// ptxas (sm_90a, chip_smoke.py logs it): see PERF.md; dynamic shared
-// memory only, PPC * (2 * R * P + 16) bytes plus 32 * WP per problem at
-// WP > 1.
+// ptxas (sm_90a, chip_smoke.py logs it): 68 registers at CPT 2, 89 at
+// CPT 5, 123 at CPT 9, 127 at CPT 9 with WP > 1 (the __launch_bounds__
+// (256, 2) cap), no spills; dynamic shared memory only, PPC * (2 * R * P
+// + 16) bytes plus 32 * WP per problem at WP > 1.
 
 #include <mutex>
 
@@ -85,29 +94,11 @@ namespace {
 
 using namespace lra;
 
-constexpr unsigned FULL = 0xffffffffu;
-
 // bytes of one warp's ballot words in a plane row (2 * CPT words, padded
 // to whole 16-byte stores)
 template <int CPT>
 __host__ __device__ constexpr int seg_bytes() {
   return 16 * ((CPT + 1) / 2);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Rows [lo, lo + n) of a plane (pitch P bytes, 16-byte aligned) into
-// shared memory, one warp, 16-byte copies; one commit group.
-__device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* pl,
-                                           int lo, int n, int P, int lane) {
-  const int nv = n * P / 16;
-  const uint8_t* src = pl + (size_t)lo * P;
-  for (int v = lane; v < nv; v += 32) cp_async16(dst + 16 * v, src + 16 * v);
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ unsigned long long lds_u64(unsigned addr) {
@@ -124,10 +115,6 @@ __device__ __forceinline__ void store4(uint8_t* p, unsigned w, bool aligned) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) p[k] = (uint8_t)(w >> (8 * k));
   }
-}
-
-__device__ __forceinline__ void group_sync(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
 // Where band cell d's code lies in a plane row: (byte offset of its word

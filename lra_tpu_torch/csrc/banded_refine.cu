@@ -102,23 +102,6 @@ constexpr int REF_DELC = 4, REF_INSC = 5;
 constexpr int MATCH_BIT = 1, INS_BIT = 2, DEL_BIT = 4, DELC_BIT = 8;
 constexpr int DEL_OPEN_BIT = 16, INS_OPEN_BIT = 32, VALID_BIT = 64;
 constexpr int DONE_BIT = 128;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Rows [lo, lo + n) of a plane (pitch P bytes, 16-byte aligned) into
-// shared memory, one warp, 16-byte copies; one commit group.
-__device__ __forceinline__ void stage_rows(uint8_t* dst, const int8_t* pl,
-                                           int lo, int n, int P, int lane) {
-  const int nv = n * P / 16;
-  const int8_t* src = pl + (size_t)lo * P;
-  for (int v = lane; v < nv; v += 32) cp_async16(dst + 16 * v, src + 16 * v);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 
 __device__ __forceinline__ int lds_u8(unsigned addr) {
   unsigned v;
@@ -288,10 +271,6 @@ __device__ __forceinline__ int8_t plane_flags(float Sv, float Sl, float I,
   acc = fmaf(dop, 16.f, acc);
   acc = fmaf((float)(I == Sl + open), 32.f, acc);
   return (int8_t)(__float_as_uint(acc) & 0xffu);
-}
-
-__device__ __forceinline__ void group_sync(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
 template <int CPT, bool MULTI>

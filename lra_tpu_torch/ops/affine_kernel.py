@@ -504,7 +504,9 @@ def global_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
     to 16-byte stores); R plane rows per traceback chunk (16-64: 2 KB
     in a full bucket, 32 KB with one problem a block); the dynamic
     shared memory (per problem: two chunks, the WP > 1 exchange slots,
-    the problem index) and threads per block."""
+    two problem indices) and threads per block.  A bucket whose T+1
+    rows fit in the two chunks (T < 2R) keeps each problem's plane
+    there and needs none in device memory."""
     cpt, wp = _tier(K)
     ppc = _per_block(wp, B, sms)
     P = 16 * ((cpt + 1) // 2) * wp
