@@ -455,23 +455,16 @@ def kernel_phase(dev) -> None:
         ref, pms = timed(lambda: ak.banded_global_traced_packed_plain(
             *a[:4], K, M, MM, IND, a[4]))
         exact(f"banded_global_traced_packed B={B} K={K} S={S}", got, ref)
-        plans = plan_variants(ak.global_plan, K) + [
-            ("spread plan", ak._global_layout(*ak._spread_tier(K), 1))]
-        times = []
-        for name, plan in plans:
+        for name, plan in plan_variants(ak.global_plan, K):
             got = ak._global_cuda(*a[:4], a[4], K, M, MM, IND, plan=plan)
             torch.cuda.synchronize()
             exact(f"banded_global_traced_packed B={B} K={K} S={S} {name}",
                   got, ref)
-            times.append(cuda_ms(lambda: ak._global_cuda(
-                *a[:4], a[4], K, M, MM, IND, plan=plan), 5))
         ms = cuda_ms(lambda: ak.banded_global_traced_packed(
             *a[:4], K, M, MM, IND, kband=a[4]), 5)
         log(f"kernel banded_global_traced_packed B={B} K={K} S={S} "
             f"{plan_str(ak.global_plan(K, B))}: exact, and with each "
-            f"launch plan; {ms:.3f} ms (plain {pms:.1f} ms); "
-            + ", ".join(f"{n} ({p['CPT']}x{p['WP']}) {t:.3f} ms"
-                        for (n, p), t in zip(plans, times)))
+            f"launch plan; {ms:.3f} ms (plain {pms:.1f} ms)")
     for a, K in banded:
         B, S = a[0].shape
         got = ak.banded_refine_traced_packed(*a[:4], K, M, MM, IND,

@@ -550,8 +550,6 @@ extern "C" int lra_banded_global_traced_packed(
   if (WP == 1 && CPT == 2) LRA_K4_LAUNCH(2, false);
   if (WP == 1 && CPT == 5) LRA_K4_LAUNCH(5, false);
   if (WP == 1 && CPT == 9) LRA_K4_LAUNCH(9, false);
-  if (WP > 1 && CPT == 2) LRA_K4_LAUNCH(2, true);
-  if (WP > 1 && CPT == 5) LRA_K4_LAUNCH(5, true);
   if (WP > 1 && CPT == 9) LRA_K4_LAUNCH(9, true);
 #undef LRA_K4_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -508,17 +508,7 @@ def global_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
     rows fit in the two chunks (T < 2R) keeps each problem's plane
     there and needs none in device memory."""
     cpt, wp = _tier(K)
-    return _global_layout(cpt, wp, _per_block(wp, B, sms))
-
-
-def _spread_tier(K: int) -> tuple:
-    """(CPT, WP) with the fewest cells a lane on at most 8 warps."""
-    band = 2 * K + 1
-    cpt = next(c for c in _CPT if -(-band // (32 * c)) <= _CTA_WARPS)
-    return cpt, -(-band // (32 * cpt))
-
-
-def _global_layout(cpt: int, wp: int, ppc: int) -> dict:
+    ppc = _per_block(wp, B, sms)
     P = 16 * ((cpt + 1) // 2) * wp
     R = _chunk_rows(P, _GLOBAL_FULL_CHUNK_BYTES if ppc > 1
                     else _CHUNK_BYTES)
