@@ -2,8 +2,8 @@
 """K4 of other trees against this tree's, on one card, on the inputs
 chip_smoke.py recorded:
 
-    python3 chip_smoke.py --save-k4 chiprun_out/k4_inputs.pt
-    python3 tools/k4_compare.py chiprun_out/k4_inputs.pt OTHER_TREE...
+    python3 chip_smoke.py --save-k4 PATH
+    python3 tools/k4_compare.py PATH OTHER_TREE...
 
 Each OTHER_TREE is an unpacked `git archive` of a commit (or a copy of
 this tree with another csrc/banded_global.cu).  Its source is built with
