@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py      # from the repository root, one CUDA GPU
     python3 chip_smoke.py --save-k4 PATH   # also save each path's largest
-                                           # K4 input (tools/k4_compare.py)
+                                           # K4 input (tools/kernel_compare.py)
+    python3 chip_smoke.py --save-k2 PATH   # the same for K2
 
 Needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); exits non-zero without a result line otherwise, and on any
@@ -13,7 +14,10 @@ failure.  Phases:
    kernel source;
 2. kernels: each hand-written kernel against its plain torch twin on
    seeded inputs at a spread of shapes — exact equality — with median
-   CUDA-event times (K4 and K5 at every K tier, off-tier K up to 1023,
+   CUDA-event times (K2 at both tiers and every launch plan, N = 64 to
+   8192, B = 1 to 4096, on invalid rows that keep lane bits, empty
+   problems and tie-dense problems; K4 and K5 at every K tier, off-tier
+   K up to 1023,
    S 16 to 2048 and the edge problems of sim.refine_problems, with each
    of their launch plans; K6 at (K, D) buckets up to 2052 lanes in both
    closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
@@ -46,9 +50,12 @@ failure.  Phases:
 5. the recorded main-path inputs: each kernel against its plain twin
    again (exact), timed, beside its bound; K5 and K4 on the largest
    input of each path, exact and timed with each launch plan, whole and
-   with the walk skipped, and every K4 launch's (B, S, K) per path; K7
-   on the largest input of CONTIG (b) and of (c), exact and timed with
-   clusters of 8 and 16 CTAs;
+   with the walk skipped, and every K4 launch's (B, S, K) per path; K2's
+   (B, N, need_full) per path, and K2 on each path's largest input,
+   exact with each launch plan, timed per call, back to back and with
+   the in-block pass or the cross-block folds skipped; K7 on the largest
+   input of CONTIG (b) and of (c), exact and timed with clusters of 8
+   and 16 CTAs;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
    device="cuda": the first 16 CCS reads in both configurations, the
    first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
@@ -94,6 +101,7 @@ OPS_PER_CELL = {"banded_global_traced_packed": 10,
                 "one_gap_traced": 20}
 OPS_PER_PAIR = 40
 OPS_PER_MASK_ROW = 3
+BACK_TO_BACK = 20           # launches between two events, back to back
 
 KERNELS = {
     "chain_scores_blocked": ("lra_tpu_torch/csrc/sdp_blocked.cu",
@@ -250,6 +258,34 @@ def sdp_inputs(rng, B, N, dev, nvalid=None):
     return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrs]
 
 
+def blocked_inputs(rng, B, N, kind, dev):
+    """K2's arguments: sim.sdp_bucket ("edges"), tie-dense problems at the
+    driver's padding ("tie": sim.tie_dense_chain_arrays, collectors tying
+    across every root in both lanes), or sdp_inputs ("random")."""
+    import torch
+
+    from lra_tpu_torch.chain import driver
+    from lra_tpu_torch.sim import sdp_bucket, tie_dense_chain_arrays
+
+    if kind == "random":
+        return sdp_inputs(rng, B, N, dev)
+    if kind == "tie":
+        plist = [driver.ChainProblem(*tie_dense_chain_arrays(
+            rng, int(rng.integers(1, N // 4 + 2)),
+            int(rng.integers(1, N // 2 + 1)))) for _ in range(B)]
+        arrays = driver.pad_problems(plist, B, N)
+    else:
+        arrays = sdp_bucket(rng, B, N)
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in arrays]
+
+
+def _sm(dev) -> int:
+    from lra_tpu_torch.ops import _ext
+
+    return _ext.sm_count(dev.index or 0)
+
+
 def windowed_inputs(rng, sizes, N, dev, kind="contig"):
     """K7's 17 arguments at the driver's padding, [B = len(sizes), N], of
     contig-like problems, of the repeat-dense FAR-sentinel instance
@@ -372,18 +408,38 @@ def kernel_phase(dev) -> None:
 
     rng = np.random.default_rng(0)
     key = from_options(preset("ccs")).static_key()
-    for N in (64, 8192):
-        a = sdp_inputs(rng, 16, N, dev)
+    # K2 at every tier (a warp a problem at N = 64, a block above), B = 1,
+    # 13, 512 and 4096 (past the grid: the problem counter), N up to 8192,
+    # on sim.sdp_bucket's edge rows (invalid
+    # rows that keep lane bits, an all-invalid problem with lane bits, an
+    # empty problem) and tie-dense problems, with every launch plan; the
+    # last case (B=16 N=8192, the earlier kernel phase's) feeds K3 below
+    for B, N, kind in ((4096, 64, "edges"), (512, 64, "edges"),
+                       (13, 64, "edges"),
+                       (1, 64, "edges"), (13, 128, "edges"),
+                       (512, 512, "edges"), (13, 512, "edges"),
+                       (1, 2048, "edges"), (13, 2048, "edges"),
+                       (1, 8192, "edges"), (13, 64, "tie"), (13, 128, "tie"),
+                       (3, 512, "tie"), (2, 2048, "tie"),
+                       (16, 8192, "random")):
+        a = blocked_inputs(rng, B, N, kind, dev)
+        ref, pms = timed(lambda: sb.chain_scores_blocked_plain(*a, key))
         got = sb.chain_scores_blocked(*a, key)
         torch.cuda.synchronize()
-        ref = sb.chain_scores_blocked_plain(*a, key)
-        torch.cuda.synchronize()
         for nm, x, y in zip(("V", "bp", "lane"), got, ref):
-            exact(f"chain_scores_blocked N={N} {nm}", x, y)
+            exact(f"chain_scores_blocked B={B} N={N} {kind} {nm}", x, y)
+        for plan in sb.plan_variants(N):
+            out = sb._chain_scores_blocked_cuda(*a, key, 64, plan=plan)
+            torch.cuda.synchronize()
+            for nm, x, y in zip(("V", "bp", "lane"), out, ref):
+                exact(f"chain_scores_blocked B={B} N={N} {kind} "
+                      f"{sb.plan_str(plan)} {nm}", x, y)
         ms = cuda_ms(lambda: sb.chain_scores_blocked(*a, key), 5)
-        pms = cuda_ms(lambda: sb.chain_scores_blocked_plain(*a, key), 1)
-        log(f"kernel chain_scores_blocked B=16 N={N}: exact; "
-            f"{ms:.3f} ms (plain {pms:.1f} ms)")
+        bnd, by = sdp_bound(a)
+        log(f"kernel chain_scores_blocked B={B} N={N} {kind} "
+            f"({sb.plan_str(sb.sdp_plan(N, B, _sm(dev)))}): exact, and "
+            f"with each launch plan; {ms:.4f} ms (plain {pms:.1f} ms, "
+            f"bound {bnd:.5f} ms, {by})")
     # K3 on K2's last outputs (real backpointers; a prefix of a problem is
     # a problem, bp[i] < i) with valid prefixes
     V, bp = got[0], got[1]
@@ -550,6 +606,8 @@ class Recorder:
         self.refine: dict = {}      # path label: K5's largest input there
         self.glob: dict = {}        # path label: K4's largest input there
         self.glob_calls: dict = {}  # path label: (B, S, K) of each K4 call
+        self.blocked: dict = {}     # path label: K2's largest input there
+        self.blocked_calls: dict = {}   # path label: (B, N, need_full)
         self.path = None
         self.saved = []
 
@@ -591,6 +649,14 @@ class Recorder:
                 keep.append((self.glob, self.path))
                 self.glob_calls.setdefault(self.path, []).append(
                     (args[0].shape[0], args[0].shape[1], args[4]))
+            if name == "chain_scores_blocked":
+                keep.append((self.blocked, self.path))
+                # the driver's masked round (_chain_packed_masked) wants
+                # the single best chain only
+                full = sys._getframe(1).f_code.co_name != \
+                    "_chain_packed_masked"
+                self.blocked_calls.setdefault(self.path, []).append(
+                    (args[0].shape[0], args[0].shape[1], full))
             for store, k in keep:
                 if work > store.get(k, (-1,))[0]:
                     store[k] = (work, [x.clone() if hasattr(x, "clone")
@@ -939,6 +1005,7 @@ def chain_mask_phase(problems, opts, rec, launches) -> None:
               for p in full]
     gp = from_options(opts)
     _ext.reset_launches()
+    rec.path = "ccs SDP-2 need_full=False (K3 driver path)"
     with rec:
         solve_problems(masked, gp, True, DEV)
     torch.cuda.synchronize()
@@ -1045,6 +1112,50 @@ def main_path_kernels(rec, launches) -> list:
     return rows
 
 
+def blocked_paths_phase(rec) -> None:
+    """K2 against its twin on the largest input each path gave it, exact
+    with every launch plan (sb.plan_variants); timed through the wrapper
+    (the main path's call, host launch work included), back to back
+    (BACK_TO_BACK launches between two events: the card's time per
+    launch), and back to back with the in-block pass or the cross-block
+    folds skipped (phases 1 / 2, launches the main path never makes), in
+    two rounds of turns."""
+    import torch
+
+    from lra_tpu_torch.ops import sdp_blocked as sb
+
+    if not rec.blocked:
+        raise AssertionError("no main-path call of chain_scores_blocked "
+                             "recorded")
+
+    def b2b(fn):
+        return cuda_ms(lambda: [fn() for _ in range(BACK_TO_BACK)], 3) / \
+            BACK_TO_BACK
+    for label, (_, args, kw) in rec.blocked.items():
+        ref, pms = timed(lambda: sb.chain_scores_blocked_plain(*args, **kw))
+        B, N = args[0].shape
+        for plan in sb.plan_variants(N):
+            got = sb._chain_scores_blocked_cuda(*args, 64, plan=plan)
+            torch.cuda.synchronize()
+            for nm, x, y in zip(("V", "bp", "lane"), got, ref):
+                exact(f"chain_scores_blocked [{label}] {sb.plan_str(plan)} "
+                      f"{nm}", x, y)
+        fn = lambda: sb.chain_scores_blocked(*args, **kw)
+        parts = [lambda ph=ph: sb._chain_scores_blocked_cuda(
+            *args, 64, phases=ph) for ph in (3, 1, 2)]
+        res = [(cuda_ms(fn, 10), *[b2b(f) for f in parts])
+               for _ in range(2)]
+        bnd, by = sdp_bound(args)
+        log(f"K2 [{label}] main-path input B={B} N={N} "
+            f"({int(args[7].sum())} valid rows; "
+            f"{sb.plan_str(sb.sdp_plan(N, B, _sm(args[0].device)))}): exact "
+            f"with every plan; plain twin {pms:.1f} ms; bound {bnd:.5f} ms "
+            f"({by}); " + "; ".join(
+                f"per call {c:.4f} ms, back to back {w:.4f} (no in-block "
+                f"pass {nf:.4f}, no cross-block folds {nb:.4f})"
+                for c, w, nf, nb in res))
+
+
 def windowed_paths_phase(rec) -> None:
     """K7 against its twin on the largest input each CONTIG path gave it
     (exact), timed with the cluster at 8 CTAs (portable) and at 16
@@ -1105,6 +1216,7 @@ def planned_paths_phase(tag, store, plain, run, plan_fn) -> None:
     turns."""
     import torch
 
+    from lra_tpu_torch.ops import _ext
     from lra_tpu_torch.ops import affine_kernel as ak
 
     if not store:
@@ -1115,7 +1227,7 @@ def planned_paths_phase(tag, store, plain, run, plan_fn) -> None:
         B = q.shape[0]
         ref, pms = timed(lambda: plain(q, t, qlen, tlen, K, *args[5:8],
                                        kband))
-        chosen = plan_fn(K, B, ak._sm_count(0))
+        chosen = plan_fn(K, B, _ext.sm_count(0))
         plans = plan_variants(plan_fn, K)
         res = {name: [] for name, _ in plans}
         for _ in range(2):
@@ -1139,27 +1251,30 @@ def planned_paths_phase(tag, store, plain, run, plan_fn) -> None:
                             f"walk {ms - f:.4f})" for ms, f in res[name]))
 
 
-def k4_launch_shapes(rec) -> None:
-    """Every K4 launch's (B, S, K) in each path's recorded run."""
-    for label, calls in rec.glob_calls.items():
+def launch_shapes(tag, calls_by_path, what) -> None:
+    """Every launch's shape (what) of a kernel in each path's recorded
+    run: K4's (B, S, K), K2's (B, N, need_full)."""
+    for label, calls in calls_by_path.items():
         tally: dict = {}
         for c in calls:
             tally[c] = tally.get(c, 0) + 1
-        log(f"K4 [{label}] {len(calls)} launches (B, S, K): "
+        log(f"{tag} [{label}] {len(calls)} launches {what}: "
             + ", ".join(f"{c}" + (f" x{n}" if n > 1 else "")
                         for c, n in sorted(tally.items(),
                                            key=lambda x: x[0][::-1])))
 
 
-def save_k4_inputs(rec, path) -> None:
-    """Each path's largest K4 input, for tools/k4_compare.py."""
+def save_inputs(tag, store, path) -> None:
+    """Each path's largest input of a kernel (store: the recorder's), for
+    tools/kernel_compare.py."""
     import torch
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save({label: ([a.cpu() if hasattr(a, "cpu") else a for a in args],
-                        {k: v.cpu() for k, v in kw.items()})
-                for label, (_, args, kw) in rec.glob.items()}, path)
-    log(f"K4 path inputs saved to {path}")
+                        {k: v.cpu() if hasattr(v, "cpu") else v
+                         for k, v in kw.items()})
+                for label, (_, args, kw) in store.items()}, path)
+    log(f"{tag} path inputs saved to {path}")
 
 
 def cpu_parity(work, all_lines) -> None:
@@ -1233,7 +1348,8 @@ def contig_parity(work) -> None:
         f"the cuda run {k7} (cpu run {t1 - t0:.1f} s)")
 
 
-HAND = ("sdp_blocked_kernel", "chain_mask_kernel", "banded_global_kernel",
+HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
+        "chain_mask_kernel", "banded_global_kernel",
         "banded_refine_kernel", "rowsync_kernel", "one_gap_kernel",
         "sdp_windowed_kernel")
 
@@ -1327,12 +1443,16 @@ def main() -> int:
     planned_paths_phase("K5", rec.refine,
                         ak.banded_refine_traced_packed_plain,
                         ak._refine_cuda, ak.refine_plan)
-    k4_launch_shapes(rec)
+    launch_shapes("K4", rec.glob_calls, "(B, S, K)")
     planned_paths_phase("K4", rec.glob,
                         ak.banded_global_traced_packed_plain,
                         ak._global_cuda, ak.global_plan)
-    if "--save-k4" in sys.argv:
-        save_k4_inputs(rec, sys.argv[sys.argv.index("--save-k4") + 1])
+    launch_shapes("K2", rec.blocked_calls, "(B, N, need_full)")
+    blocked_paths_phase(rec)
+    for flag, tag, store in (("--save-k4", "K4", rec.glob),
+                             ("--save-k2", "K2", rec.blocked)):
+        if flag in sys.argv:
+            save_inputs(tag, store, sys.argv[sys.argv.index(flag) + 1])
     windowed_paths_phase(rec)
     log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
     cpu_parity(work, all_lines)

@@ -18,6 +18,16 @@
 // The stops and the table live in shared memory: kernel parameters sit
 // in the constant bank, where lanes that read different indices are
 // served one address at a time.
+//
+// pwl_bucket_index (K2) finds the same stop index with one lookup, not
+// the 5-step search: the stops lie at least 5 apart below 1024 and at
+// least 1000 apart from 1000 on, so a bucket of 4 (x < 1024) or of 512
+// (1024 <= x < 102400) holds at most one stop past its left edge; its
+// entry holds the stop index at the left edge and that next stop
+// (INT_MAX when there is none), and x >= 102400 lies past the last stop
+// (its entry (23, 100000): an INT_MAX there could be reached by x).
+// ops/gapcost.py:pwl_buckets_np builds the same table on the host
+// (tests/test_torch_pwl_lookup.py checks the index for every x).
 
 #pragma once
 
@@ -65,19 +75,63 @@ __device__ __forceinline__ void pwl_load(PwlSmem& s, const Pwl& p) {
   }
 }
 
-// PWL_w(x) for x >= 0: the last stop <= x picks the effective piece,
+// PWL_w(x) from the effective piece pc of the last stop <= x: the piece,
 // then floor and two ceilings; x <= 2 is free.
+__device__ __forceinline__ float pwl_piece(int x, float2 pc, float c1,
+                                           float c2) {
+  float pen = __fadd_rn(__fmul_rn(pc.x, __int2float_rn(x)), pc.y);
+  pen = floorf(pen);
+  if (pen >= c1 && pen < c2) pen = c1;
+  if (pen > c2) pen = c2;
+  return x <= 2 ? 0.f : pen;
+}
+
+// PWL_w(x) from stop index lo (the last stop <= x).
+__device__ __forceinline__ float pwl_at(int x, int lo, const PwlSmem& s) {
+  return pwl_piece(x, s.piece[lo], s.c1, s.c2);
+}
+
+// PWL_w(x) for x >= 0, the stop index by binary search.
 __device__ __forceinline__ float pwl(int x, const PwlSmem& s) {
   int lo = 0;
 #pragma unroll
   for (int step = 16; step > 0; step >>= 1)
     if (s.stops[lo + step] <= x) lo += step;
-  const float2 pc = s.piece[lo];
-  float pen = __fadd_rn(__fmul_rn(pc.x, __int2float_rn(x)), pc.y);
-  pen = floorf(pen);
-  if (pen >= s.c1 && pen < s.c2) pen = s.c1;
-  if (pen > s.c2) pen = s.c2;
-  return x <= 2 ? 0.f : pen;
+  return pwl_at(x, lo, s);
+}
+
+constexpr int NBUCKET = 256 + 198 + 1;
+
+// The bucket table of pwl_bucketed: (stop index at the left edge, the
+// next stop inside the bucket or INT_MAX).
+struct PwlBuckets {
+  int2 e[NBUCKET];
+};
+
+// Fill b, thread t of nt; a barrier must follow before the first lookup.
+__device__ __forceinline__ void pwl_buckets_load(PwlBuckets& b, int t,
+                                                 int nt) {
+  for (int k = t; k < NBUCKET; k += nt) {
+    const int lo = k < 256 ? 4 * k : 1024 + 512 * (k - 256);
+    const int hi = k < 256 ? lo + 4 : k < NBUCKET - 1 ? lo + 512 : INT_MAX;
+    int idx = 0;
+    for (int i = 1; i < NSTOP; ++i)
+      if (c_stops[i] <= lo) idx = i;
+    const int nxt = idx + 1 < NSTOP && c_stops[idx + 1] < hi
+                        ? c_stops[idx + 1] : INT_MAX;
+    // past the last stop: (24 - 1, 100000), as no x there reaches INT_MAX
+    b.e[k] = k < NBUCKET - 1 ? make_int2(idx, nxt)
+                             : make_int2(NSTOP - 2, c_stops[NSTOP - 1]);
+  }
+}
+
+// The last stop <= x from the bucket table (x < 0 reads bucket 0; such
+// an x is free all the same).
+__device__ __forceinline__ int pwl_bucket_index(int x, const PwlBuckets& b) {
+  const int k = x < 1024 ? max(x, 0) >> 2
+                         : min(256 + ((x - 1024) >> 9), NBUCKET - 1);
+  const int2 e = b.e[k];
+  return e.x + (x >= e.y);
 }
 
 // w(di, dj) = -PWL_w(|di - dj| + 1)

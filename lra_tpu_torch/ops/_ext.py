@@ -17,6 +17,7 @@ kernels its path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -143,6 +144,16 @@ def launch(kernel: str, lib: str, fn: str, argtypes: list, *args) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}: "
                            f"{_lib(lib).lra_errstr(rc).decode()})")
     LAUNCHES[kernel] += 1
+
+
+SMEM_MAX = 232448   # shared memory a block may use on sm_90
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (the launch plans'
+    card size)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ptr(t: torch.Tensor) -> int:

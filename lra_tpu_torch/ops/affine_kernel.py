@@ -450,7 +450,7 @@ _CTA_WARPS = 8              # warps per block when a bucket fills the card
 _REFINE_ROWS = 16           # K5: plane rows per traceback chunk, full buckets
 _CHUNK_BYTES = 32768        # traceback chunk, one problem a block
 _GLOBAL_FULL_CHUNK_BYTES = 2048  # K4: traceback chunk, full buckets
-SMEM_MAX = 232448           # shared memory a block may use on sm_90
+SMEM_MAX = _ext.SMEM_MAX
 
 
 def _tier(K: int) -> tuple:
@@ -517,11 +517,6 @@ def global_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
             "smem": ppc * group, "threads": 32 * wp * ppc}
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _PLANNED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
 _PLAN_KEYS = ("CPT", "WP", "PPC", "P", "R", "smem")
 
@@ -550,7 +545,7 @@ def _planned_cuda(kernel, lib, plan_fn, q, t, qlen, tlen, kband, K, m, mm,
     out = torch.empty((B, (Q + T) // 4), dtype=torch.uint8, device=q.device)
     if B == 0:
         return out
-    args = (_plan_args(plan_fn, K, B, _sm_count(q.device.index or 0))
+    args = (_plan_args(plan_fn, K, B, _ext.sm_count(q.device.index or 0))
             if plan is None else tuple(plan[k] for k in _PLAN_KEYS))
     P, R = args[3], args[4]
     rows = 0 if smem_plane and T + 1 <= 2 * R else T + 1

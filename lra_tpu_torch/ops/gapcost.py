@@ -170,3 +170,32 @@ def pwl_lookup_np(x: np.ndarray, pwl_key) -> np.ndarray:
     pen = np.where((pen >= c1) & (pen < c2), c1, pen)
     pen = np.where(pen > c2, c2, pen)
     return np.where(x <= 2, np.float32(0.0), pen).astype(np.float32)
+
+
+def pwl_buckets_np() -> np.ndarray:
+    """The bucket table of csrc/pwl.cuh's pwl_bucketed, built as the
+    kernel builds it: int64[455, 2] of (the stop index at the bucket's
+    left edge, the next stop inside the bucket or int32 max), buckets of
+    4 below 1024, of 512 up to 102400, then one past the last stop whose
+    entry is (23, 100000)."""
+    imax = np.iinfo(np.int32).max
+    out = np.zeros((256 + 198 + 1, 2), np.int64)
+    for k in range(len(out)):
+        lo = 4 * k if k < 256 else 1024 + 512 * (k - 256)
+        hi = lo + 4 if k < 256 else lo + 512 if k < len(out) - 1 else imax
+        idx = int(np.searchsorted(STOPS, lo, side="right")) - 1
+        nxt = int(STOPS[idx + 1]) if idx + 1 < NUMPWL and \
+            STOPS[idx + 1] < hi else imax
+        # past the last stop: (23, 100000), as x there may reach int32 max
+        out[k] = (idx, nxt) if k < len(out) - 1 else \
+            (NUMPWL - 2, int(STOPS[-1]))
+    return out
+
+
+def pwl_bucket_index_np(x: np.ndarray) -> np.ndarray:
+    """The stop index pwl_bucketed reads for int32 x (numpy emulation)."""
+    tab = pwl_buckets_np()
+    x = np.asarray(x, np.int64)
+    k = np.where(x < 1024, np.maximum(x, 0) >> 2,
+                 np.minimum(256 + ((x - 1024) >> 9), len(tab) - 1))
+    return tab[k, 0] + (x >= tab[k, 1])

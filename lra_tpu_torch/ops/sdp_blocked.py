@@ -18,6 +18,7 @@ csrc/chain_mask.cu or to ``chain_mask_from_scores_plain``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -131,11 +132,13 @@ def chain_scores_blocked_plain(qS, qE, tS, tE, score, lane1, lane2, valid,
             torch.cat(out_lane, 1).to(torch.int32))
 
 
+@functools.lru_cache(maxsize=None)
 def _pwl_host_params(pwl_key):
     """The kernels' PWL constants (csrc/pwl.cuh's Pwl): the effective
     piece per stop index, slope[25] and inter[25]
     (gapcost.pwl_effective_pieces), then ceiling1, ceiling2, as one f32
-    host array."""
+    host array, built once per key (a launch passes its address; the
+    cache keeps it alive)."""
     if len(pwl_key[0]) != NUMPWL - 1 or len(pwl_key[1]) != NUMPWL - 1:
         raise ValueError("pwl_key: expected 24 slopes and 24 intercepts")
     es, ei = pwl_effective_pieces(pwl_key)
@@ -144,32 +147,110 @@ def _pwl_host_params(pwl_key):
     return (ctypes.c_float * len(vals))(*vals)
 
 
-_SDP_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_int]
+# csrc/sdp_blocked.cu's shared-memory records, in bytes: a block's rows
+# and triangle (64 int4 and int2 row records, 2016 f32 weights, 64 lane-2
+# flag words) and a staged block (two lists of 64 int4 entries, row
+# indices and running maxima of V, four counts)
+_TRI_BYTES = 64 * 16 + 64 * 8 + 4 * (64 * 63 // 2) + 8 * 64
+_STAGED_BYTES = 2 * 64 * 16 + 2 * 64 * 4 + 2 * 64 * 4 + 16
+SMEM_MAX = _ext.SMEM_MAX
+_WARP_PPB = 8               # warp tier: problems (warps) a block, full bucket
+
+
+def sdp_plan(N: int, B: int | None = None, sms: int = 132) -> dict:
+    """Launch plan of csrc/sdp_blocked.cu for B problems of N rows on a
+    card of `sms` SMs: the tier (0: one problem per warp, for N = 64,
+    whose one block has no cross-block term; 1: one problem per block of
+    threads, one resolver warp and the rest folding), threads per block
+    and dynamic shared memory in bytes.  The warp tier puts 8 problems in
+    a block when the bucket gives every SM such a block, else one, so
+    that a small bucket spreads over the SMs.  The CTA tier's threads
+    grow with N (the folds grow as N^2 while the in-block pass stays one
+    warp): 128 up to N = 256, N / 2 up to 1024.  Both grids are
+    persistent: one that holds every problem at once takes them by index,
+    a smaller one from an atomic counter."""
+    if N % 64 or not 64 <= N <= 8192:
+        raise ValueError(f"chain_scores_blocked: N={N} is not a multiple of "
+                         "64 in 64..8192")
+    if N == 64:
+        full = B is not None and B >= _WARP_PPB * sms
+        return warp_plan(_WARP_PPB if full else 1)
+    return cta_plan(N, min(1024, max(128, N // 2)))
+
+
+def warp_plan(ppb: int) -> dict:
+    """The warp tier (N = 64 only) with ppb problems a block."""
+    return {"tier": 0, "threads": 32 * ppb, "smem": ppb * _TRI_BYTES}
+
+
+def cta_plan(N: int, threads: int) -> dict:
+    """The CTA tier for N rows with `threads` threads a block: two
+    triangles, two staged blocks, the running bests (value and index per
+    lane and row), the receiver lists (uint16 per lane and row), their
+    block starts and the rows' lane bits (csrc/sdp_blocked.cu:
+    cta_smem)."""
+    smem = 2 * _TRI_BYTES + 2 * _STAGED_BYTES + 21 * N + 8 * (N // 64 + 1)
+    return {"tier": 1, "threads": threads, "smem": smem}
+
+
+def plan_variants(N: int) -> list:
+    """Every plan the kernel takes at N, for the tests: sdp_plan's for a
+    small and for a full bucket (1 << 20 problems fill any card), and the
+    CTA tier at its fewest and most threads (at N = 64 too: one block and
+    no cross-block term)."""
+    out = []
+    for p in (sdp_plan(N, 1), sdp_plan(N, 1 << 20), cta_plan(N, 128),
+              cta_plan(N, 1024)):
+        if p not in out:
+            out.append(p)
+    return out
+
+
+def plan_str(plan) -> str:
+    return "tier {tier} threads {threads} smem {smem}".format(**plan)
+
+
+_PLAN_KEYS = ("tier", "threads", "smem")
+_FRAG_NAMES = ("qS", "qE", "tS", "tE", "score", "lane1", "lane2", "valid")
+_FRAG_DTYPES = (torch.int32,) * 4 + (torch.float32,) + (torch.bool,) * 3
+_SDP_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(N: int, B: int, sms: int) -> tuple:
+    plan = sdp_plan(N, B, sms)
+    return tuple(plan[k] for k in _PLAN_KEYS)
 
 
 def _chain_scores_blocked_cuda(qS, qE, tS, tE, score, lane1, lane2, valid,
-                               pwl_key, L):
+                               pwl_key, L, plan=None, phases=3):
+    """K2 on the card with sdp_plan's plan for this bucket (or the one
+    given).  phases: 3 runs the DP; 1 skips the triangles and in-block
+    pushes, 2 the cross-block folds (timings of a part's absence; the
+    outputs are then not the DP's)."""
     B, N = qS.shape
     if L != 64 or N % 64 or N > 8192:
         raise ValueError(f"chain_scores_blocked kernel: needs L=64 and "
                          f"N % 64 == 0, N <= 8192 (got L={L}, N={N})")
-    for name, t in (("qS", qS), ("qE", qE), ("tS", tS), ("tE", tE)):
-        _ext.check(name, t, torch.int32, (B, N))
-    _ext.check("score", score, torch.float32, (B, N))
-    for name, t in (("lane1", lane1), ("lane2", lane2), ("valid", valid)):
-        _ext.check(name, t, torch.bool, (B, N))
-    V = torch.empty((B, N), dtype=torch.float32, device=qS.device)
-    bp = torch.empty((B, N), dtype=torch.int32, device=qS.device)
-    lane = torch.empty((B, N), dtype=torch.int32, device=qS.device)
+    frags = (qS, qE, tS, tE, score, lane1, lane2, valid)
+    for name, t, dt in zip(_FRAG_NAMES, frags, _FRAG_DTYPES):
+        if not (t.is_cuda and t.dtype == dt and t.shape == (B, N)
+                and t.is_contiguous()):
+            _ext.check(name, t, dt, (B, N))     # raises, saying why
+    dev = qS.device
+    V = torch.empty((B, N), dtype=torch.float32, device=dev)
+    bp = torch.empty((B, N), dtype=torch.int32, device=dev)
+    lane = torch.empty((B, N), dtype=torch.int32, device=dev)
     if B == 0:
         return V, bp, lane
-    p = _ext.ptr
-    pwl = _pwl_host_params(pwl_key)     # host array, alive for the call
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    args = (_plan_args(N, B, _ext.sm_count(dev.index or 0))
+            if plan is None else tuple(plan[k] for k in _PLAN_KEYS))
     _ext.launch("chain_scores_blocked", "sdp_blocked",
                 "lra_chain_scores_blocked", _SDP_ARGS,
-                p(qS), p(qE), p(tS), p(tE), p(score), p(lane1), p(lane2),
-                p(valid), p(V), p(bp), p(lane), ctypes.addressof(pwl), B, N)
+                *[t.data_ptr() for t in frags + (V, bp, lane, counter)],
+                ctypes.addressof(_pwl_host_params(pwl_key)), B, N, *args,
+                int(phases))
     return V, bp, lane
 
 

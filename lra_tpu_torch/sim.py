@@ -146,6 +146,32 @@ def tie_dense_chain_arrays(rng, n_roots: int, n_coll: int) -> tuple:
             np.arange(len(qS), dtype=np.int64), 0)
 
 
+def sdp_bucket(rng, B: int, N: int) -> tuple:
+    """A [B, N] bucket of the blocked SDP's arguments (qS, qE, tS, tE
+    int32; score f32; lane1, lane2, valid bool), fragments sorted by qS
+    on two strands (lane 1, lane 2, both on 20 %), with the rows its
+    exactness hinges on: each problem a valid prefix of random length
+    whose invalid suffix keeps its lane bits (such a row can still take
+    a predecessor); when B > 1, problem 1 all invalid with lane bits, and
+    when B > 2, problem 2 empty (no valid row and no lane: the driver's
+    padding of B)."""
+    ln = rng.integers(15, 60, (B, N))
+    qS = np.sort(rng.integers(0, 60 * N, (B, N)), axis=1)
+    tS = (qS + rng.integers(-1500, 1500, (B, N))).clip(0)
+    strand = rng.random((B, N)) < 0.7
+    both = rng.random((B, N)) < 0.2
+    lane1, lane2 = strand | both, ~strand | both
+    valid = np.arange(N)[None, :] < rng.integers(1, N + 1, B)[:, None]
+    if B > 1:
+        valid[1] = False
+    if B > 2:
+        lane1[2] = lane2[2] = False
+        valid[2] = False
+    return (qS.astype(np.int32), (qS + ln).astype(np.int32),
+            tS.astype(np.int32), (tS + ln).astype(np.int32),
+            (ln * 2.0).astype(np.float32), lane1, lane2, valid)
+
+
 def refine_problems(rng, B: int, S: int, K: int) -> tuple:
     """A [B, S] bucket of indel-refine problems for K5 (q, t int8;
     qlen, tlen, kband int32): t random, q = t with SNPs and up to two

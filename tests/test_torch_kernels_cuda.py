@@ -20,7 +20,7 @@ from lra_tpu_torch.ops import sdp_blocked as sb
 from lra_tpu_torch.ops import sdp_windowed as sw
 from lra_tpu_torch.ops.gapcost import from_options
 from lra_tpu_torch.sim import (contig_chain_arrays, refine_problems,
-                               tie_dense_chain_arrays)
+                               sdp_bucket, tie_dense_chain_arrays)
 
 torch.set_num_threads(2)
 M, MM, IND = 4, -3, -4
@@ -76,6 +76,57 @@ def test_chain_scores_blocked_kernel_matches_plain(cuda_device, B, N):
     torch.cuda.synchronize()
     assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+
+
+def blocked_bucket(rng, B, N, kind, dev):
+    """K2's arguments: sim.sdp_bucket (invalid rows with lane bits, an
+    all-invalid problem with lane bits, an empty problem), or tie-dense
+    problems (sim.tie_dense_chain_arrays: roots at one q, collectors
+    tying across every root in both lanes) at the driver's padding."""
+    if kind == "tie":
+        plist = [driver.ChainProblem(*tie_dense_chain_arrays(
+            rng, int(rng.integers(1, N // 4 + 2)),
+            int(rng.integers(1, N // 2 + 1)))) for _ in range(B)]
+        arrays = driver.pad_problems(plist, B, N)
+    else:
+        arrays = sdp_bucket(rng, B, N)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,kind", [
+    (4096, 64, "edges"), (512, 64, "edges"), (13, 64, "edges"),
+    (1, 64, "edges"),
+    (13, 128, "edges"), (512, 512, "edges"), (13, 512, "edges"),
+    (1, 2048, "edges"), (13, 2048, "edges"), (1, 8192, "edges"),
+    (13, 64, "tie"), (13, 128, "tie"), (3, 512, "tie"), (2, 2048, "tie")])
+def test_blocked_kernel_tiers_match_plain(cuda_device, B, N, kind):
+    """K2 at every tier (one problem a warp at N = 64, one a block above),
+    B = 1, 13, 512 and 4096 (more problems than the grid holds: the
+    problem counter), N up to 8192, on
+    invalid rows that keep lane bits, an all-invalid problem with lane
+    bits, an empty problem, and tie-dense problems; through the wrapper
+    and with every launch plan forced: V bit for bit, bp and lane
+    exactly equal to the plain twin."""
+    key = from_options(preset("ccs")).static_key()
+    args = blocked_bucket(np.random.default_rng(B * N), B, N, kind,
+                          cuda_device)
+    ref = sb.chain_scores_blocked_plain(*args, key)
+    got = sb.chain_scores_blocked(*args, key)
+    torch.cuda.synchronize()
+    assert bool((ref[1] >= 0).any())
+    if kind == "edges" and B > 1:
+        invalid_taken = (~args[7]) & (ref[1] >= 0)
+        assert bool(invalid_taken.any())
+    for plan in [None] + sb.plan_variants(N):
+        if plan is not None:
+            got = sb._chain_scores_blocked_cuda(*args, key, 64, plan=plan)
+            torch.cuda.synchronize()
+        assert torch.equal(got[0].view(torch.int32),
+                           ref[0].view(torch.int32)), plan
+        assert torch.equal(got[1], ref[1]), plan
+        assert torch.equal(got[2], ref[2]), plan
 
 
 @pytest.mark.cuda

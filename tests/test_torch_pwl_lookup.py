@@ -11,8 +11,8 @@ import pytest
 from lra_tpu import preset
 from lra_tpu.ops.gapcost import from_options, pwl_select_jnp
 from lra_tpu_torch import preset as t_preset
-from lra_tpu_torch.ops.gapcost import (NUMPWL, STOPS, pwl_effective_pieces,
-                                       pwl_lookup_np)
+from lra_tpu_torch.ops.gapcost import (NUMPWL, STOPS, pwl_bucket_index_np,
+                                       pwl_effective_pieces, pwl_lookup_np)
 from lra_tpu_torch.ops.gapcost import from_options as t_from_options
 from lra_tpu_torch.ops.sdp_blocked import _pwl_host_params
 
@@ -35,3 +35,16 @@ def test_pwl_lookup_matches_jax(name):
     assert es[NUMPWL - 1] == es[NUMPWL - 2] and len(STOPS) == NUMPWL
     # the free pieces (left stop <= 10) have no effective piece
     assert not es[STOPS <= 10].any() and not ei[STOPS <= 10].any()
+
+
+def test_pwl_bucket_index_is_the_search_index():
+    """csrc/pwl.cuh's bucketed stop index (pwl_bucketed, K2) == the last
+    stop <= x, the binary search's, for every x in 0..200000, the int32
+    extremes and negative x (bucket 0; free either way)."""
+    x = np.concatenate([np.arange(200_001), [2 ** 31 - 1, 2 ** 31 - 2,
+                                             10 ** 9, -1, -7, -2 ** 31]])
+    got = pwl_bucket_index_np(x)
+    pos = x >= 0
+    want = np.searchsorted(STOPS, x[pos], side="right") - 1
+    np.testing.assert_array_equal(got[pos], want)
+    assert (got[~pos] == 0).all() and got.max() == NUMPWL - 1

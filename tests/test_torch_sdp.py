@@ -13,7 +13,7 @@ from lra_tpu.ops import sdp_blocked as jsdp
 from lra_tpu.ops.gapcost import from_options
 from lra_tpu_torch.chain import driver as tdriver
 from lra_tpu_torch.ops import sdp_blocked as tsdp
-from lra_tpu_torch.sim import contig_chain_arrays
+from lra_tpu_torch.sim import contig_chain_arrays, tie_dense_chain_arrays
 
 torch.set_num_threads(2)
 
@@ -38,10 +38,27 @@ def frag_batch(rng, B, N, nvalid):
             valid]
 
 
-@pytest.mark.parametrize("B,N,seed", [(4, 64, 0), (3, 128, 1)])
+def tie_batch(rng, B, N):
+    """Tie-dense problems (sim.tie_dense_chain_arrays: roots at one q,
+    collectors tying across every root in both lanes) at the driver's
+    padding."""
+    plist = [tdriver.ChainProblem(*tie_dense_chain_arrays(
+        rng, int(rng.integers(2, N // 4 + 2)),
+        int(rng.integers(2, N // 2 + 1)))) for _ in range(B)]
+    return tdriver.pad_problems(plist, B, N)
+
+
+# seed "tie": the tie-dense instance, which pins the first-index and lane
+# tie rules against lra_tpu itself
+@pytest.mark.parametrize("B,N,seed", [(4, 64, 0), (3, 128, 1),
+                                      (2, 128, "tie")])
 def test_chain_scores_blocked_and_mask_plain_match_jax(key, B, N, seed):
-    rng = np.random.default_rng(seed)
-    args = frag_batch(rng, B, N, rng.integers(N // 2, N + 1, B))
+    if seed == "tie":
+        rng = np.random.default_rng(7)
+        args = tie_batch(rng, B, N)
+    else:
+        rng = np.random.default_rng(seed)
+        args = frag_batch(rng, B, N, rng.integers(N // 2, N + 1, B))
     V, bp, lane = [np.asarray(x) for x in jsdp.chain_scores_blocked(
         *(jnp.asarray(a) for a in args), key)]
     tV, tbp, tlane = [x.numpy() for x in tsdp.chain_scores_blocked(
