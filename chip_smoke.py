@@ -52,8 +52,8 @@ failure.  Phases:
    input of each path, exact and timed with each launch plan, whole and
    with the walk skipped, and every K4 launch's (B, S, K) per path; K2's
    (B, N, need_full) per path, and K2 on each path's largest input,
-   exact with each launch plan, timed per call, back to back and with
-   the in-block pass or the cross-block folds skipped; K7 on the largest
+   exact with each launch plan, timed per call and back to back; K7 on
+   the largest
    input of CONTIG (b) and of (c), exact and timed with clusters of 8
    and 16 CTAs;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
@@ -280,12 +280,6 @@ def blocked_inputs(rng, B, N, kind, dev):
             for x in arrays]
 
 
-def _sm(dev) -> int:
-    from lra_tpu_torch.ops import _ext
-
-    return _ext.sm_count(dev.index or 0)
-
-
 def windowed_inputs(rng, sizes, N, dev, kind="contig"):
     """K7's 17 arguments at the driver's padding, [B = len(sizes), N], of
     contig-like problems, of the repeat-dense FAR-sentinel instance
@@ -409,8 +403,8 @@ def kernel_phase(dev) -> None:
     rng = np.random.default_rng(0)
     key = from_options(preset("ccs")).static_key()
     # K2 at every tier (a warp a problem at N = 64, a block above), B = 1,
-    # 13, 512 and 4096 (past the grid: the problem counter), N up to 8192,
-    # on sim.sdp_bucket's edge rows (invalid
+    # 13, 512 and 4096 (more blocks than fit at once), N up to 8192, on
+    # sim.sdp_bucket's edge rows (invalid
     # rows that keep lane bits, an all-invalid problem with lane bits, an
     # empty problem) and tie-dense problems, with every launch plan; the
     # last case (B=16 N=8192, the earlier kernel phase's) feeds K3 below
@@ -437,7 +431,7 @@ def kernel_phase(dev) -> None:
         ms = cuda_ms(lambda: sb.chain_scores_blocked(*a, key), 5)
         bnd, by = sdp_bound(a)
         log(f"kernel chain_scores_blocked B={B} N={N} {kind} "
-            f"({sb.plan_str(sb.sdp_plan(N, B, _sm(dev)))}): exact, and "
+            f"({sb.plan_str(sb.sdp_plan(N))}): exact, and "
             f"with each launch plan; {ms:.4f} ms (plain {pms:.1f} ms, "
             f"bound {bnd:.5f} ms, {by})")
     # K3 on K2's last outputs (real backpointers; a prefix of a problem is
@@ -598,7 +592,10 @@ class Recorder:
              ("lra_tpu_torch.pipeline.gap_align", "one_gap_traced"),
              ("lra_tpu_torch.chain.driver", "chain_scores_blocked"),
              ("lra_tpu_torch.chain.driver", "chain_mask_from_scores"),
-             ("lra_tpu_torch.chain.driver", "chain_scores_windowed"))
+             ("lra_tpu_torch.chain.driver", "chain_scores_windowed"),
+             # the driver's single-best-chain round (need_full=False):
+             # K2 then K3
+             ("lra_tpu_torch.chain.driver", "_chain_packed_masked"))
 
     def __init__(self):
         self.best: dict = {}
@@ -608,6 +605,7 @@ class Recorder:
         self.glob_calls: dict = {}  # path label: (B, S, K) of each K4 call
         self.blocked: dict = {}     # path label: K2's largest input there
         self.blocked_calls: dict = {}   # path label: (B, N, need_full)
+        self.masked = False     # inside the driver's masked round
         self.path = None
         self.saved = []
 
@@ -638,6 +636,15 @@ class Recorder:
         return args[0].numel() * args[4]    # banded: B x S x K
 
     def _wrap(self, name, orig):
+        if name == "_chain_packed_masked":
+            def masked(*args, **kw):
+                self.masked = True
+                try:
+                    return orig(*args, **kw)
+                finally:
+                    self.masked = False
+            return masked
+
         def rec(*args, **kw):
             work = self.work(name, args, kw)
             keep = [(self.best, name)]
@@ -651,12 +658,8 @@ class Recorder:
                     (args[0].shape[0], args[0].shape[1], args[4]))
             if name == "chain_scores_blocked":
                 keep.append((self.blocked, self.path))
-                # the driver's masked round (_chain_packed_masked) wants
-                # the single best chain only
-                full = sys._getframe(1).f_code.co_name != \
-                    "_chain_packed_masked"
                 self.blocked_calls.setdefault(self.path, []).append(
-                    (args[0].shape[0], args[0].shape[1], full))
+                    (args[0].shape[0], args[0].shape[1], not self.masked))
             for store, k in keep:
                 if work > store.get(k, (-1,))[0]:
                     store[k] = (work, [x.clone() if hasattr(x, "clone")
@@ -1014,6 +1017,9 @@ def chain_mask_phase(problems, opts, rec, launches) -> None:
         raise AssertionError("chain_mask_from_scores was not launched on "
                              "the need_full=False driver path")
     launches["chain_mask_from_scores"] = n
+    if not any(not f for _, _, f in rec.blocked_calls.get(rec.path, [])):
+        raise AssertionError("no K2 launch of the need_full=False round "
+                             "recorded on the K3 driver path")
     for a, b in zip(full, masked):
         if best_chain(a) != best_chain(b) or chain_vmax(a) != chain_vmax(b):
             raise AssertionError("need_full=False chain != need_full=True "
@@ -1117,9 +1123,7 @@ def blocked_paths_phase(rec) -> None:
     with every launch plan (sb.plan_variants); timed through the wrapper
     (the main path's call, host launch work included), back to back
     (BACK_TO_BACK launches between two events: the card's time per
-    launch), and back to back with the in-block pass or the cross-block
-    folds skipped (phases 1 / 2, launches the main path never makes), in
-    two rounds of turns."""
+    launch), in two rounds of turns."""
     import torch
 
     from lra_tpu_torch.ops import sdp_blocked as sb
@@ -1141,19 +1145,14 @@ def blocked_paths_phase(rec) -> None:
                 exact(f"chain_scores_blocked [{label}] {sb.plan_str(plan)} "
                       f"{nm}", x, y)
         fn = lambda: sb.chain_scores_blocked(*args, **kw)
-        parts = [lambda ph=ph: sb._chain_scores_blocked_cuda(
-            *args, 64, phases=ph) for ph in (3, 1, 2)]
-        res = [(cuda_ms(fn, 10), *[b2b(f) for f in parts])
-               for _ in range(2)]
+        res = [(cuda_ms(fn, 10), b2b(fn)) for _ in range(2)]
         bnd, by = sdp_bound(args)
         log(f"K2 [{label}] main-path input B={B} N={N} "
             f"({int(args[7].sum())} valid rows; "
-            f"{sb.plan_str(sb.sdp_plan(N, B, _sm(args[0].device)))}): exact "
-            f"with every plan; plain twin {pms:.1f} ms; bound {bnd:.5f} ms "
-            f"({by}); " + "; ".join(
-                f"per call {c:.4f} ms, back to back {w:.4f} (no in-block "
-                f"pass {nf:.4f}, no cross-block folds {nb:.4f})"
-                for c, w, nf, nb in res))
+            f"{sb.plan_str(sb.sdp_plan(N))}): exact with every plan; "
+            f"plain twin {pms:.1f} ms; bound {bnd:.5f} ms ({by}); "
+            + "; ".join(f"per call {c:.4f} ms, back to back {w:.4f}"
+                        for c, w in res))
 
 
 def windowed_paths_phase(rec) -> None:

@@ -43,12 +43,13 @@
 //   bit is a receiver like any other (take is computed whatever valid
 //   says); invalid rows are never predecessors.
 // - Warp tier (N = 64: one block, no cross-block term): one problem per
-//   warp, 1 or 8 warps a block.  The warp records its block, computes
-//   its triangle, then resolves it (below).
-// - CTA tier (N >= 128): one problem per CTA at a time.
-// - Both grids are persistent: one that holds every problem at once takes
-//   them by index (no counter to clear); a smaller one takes them from an
-//   atomic counter.
+//   thread block of one warp.  The warp records its block, computes its
+//   triangle, then resolves it (below).
+// - CTA tier (N >= 128): one problem per CTA.
+// - Both grids are plain, a thread block a problem: every K2 launch on
+//   chip_smoke.py's paths fits the card in one wave (B <= 512; ONT's
+//   B=512 N=512 at 4 CTAs an SM), so a persistent grid's problem counter
+//   would only add a memset.  A larger bucket runs in waves.
 //   Set-up: warp 0 lists the problem's receiver rows per lane (rows with
 //   that lane bit, in row order) and where each block starts in the
 //   lists; every row's running best per lane (value, first index) starts
@@ -102,8 +103,8 @@
 //   search's five), the tables in shared memory at file scope and the
 //   ceilings in registers.
 //
-// ptxas (sm_90a, nvcc 12.8): the CTA tier 64 registers (launch bounds
-// 1024), no spills; the warp tier 102.  chip_smoke.py logs them, and
+// ptxas (sm_90a, nvcc 12.8): the CTA tier 55 registers (launch bounds
+// 1024), no spills; the warp tier 63.  chip_smoke.py logs them, and
 // tools/k2_phases.py times the CTA tier's phases per problem.
 // Global data written by the kernel is never read back by it.
 
@@ -111,7 +112,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <mutex>
+#include <atomic>
 
 #include "pwl.cuh"
 
@@ -122,8 +123,6 @@ constexpr int NTRI = L * (L - 1) / 2;  // in-block pairs c < r
 constexpr int MAXT = 1024;
 constexpr float NEG = -3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int PH_FOLD = 1;   // phases: the cross-block folds
-constexpr int PH_BLOCK = 2;  // phases: the triangles and in-block pushes
 
 struct Frag {
   const int *qS, *qE, *tS, *tE;
@@ -368,13 +367,12 @@ __device__ void fold(const Frag& g, const Staged& st, const Tri& near,
 
 // Resolve the block at b0 by one warp, lane k owning rows b0 + 2k and
 // b0 + 2k + 1: the rows from t's record, the cross-block bests from rb
-// (none when null), the in-block pass over t's weights (when inblock), the
-// outputs to o, and the block's valid rows staged into st (when not null).
+// (none when null), the in-block pass over t's weights, the outputs to o,
+// and the block's valid rows staged into st (when not null).
 // Rows from nr on are past the problem's last valid or lane bit: (NEG, -1,
 // 0), no pass.
 __device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
-                        const Running* rb, Staged* st, bool inblock,
-                        int lane) {
+                        const Running* rb, Staged* st, int lane) {
   // per row: score (NEG when invalid), cross-block best, first index and
   // lane, in-block best and first column
   float sc[2], bv[2], inb[2];
@@ -410,43 +408,41 @@ __device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
   // column a strict >.  An invalid row's v is NEG + best = NEG (|best| is
   // far below half an ulp of NEG), whose pushes never beat the start NEG.
   // Rows from nr on run on in steps of 16: their values are never read.
-  if (inblock) {
-    const float bz0 = fmaxf(bv[0], 0.f), bz1 = fmaxf(bv[1], 0.f);
-    const float wself = t.w[tri_off(2 * lane)];  // w(2k + 1, 2k)
+  const float bz0 = fmaxf(bv[0], 0.f), bz1 = fmaxf(bv[1], 0.f);
+  const float wself = t.w[tri_off(2 * lane)];  // w(2k + 1, 2k)
 #pragma unroll
-    for (int m = 0; m < L / 2; ++m) {
-      const int l = 2 * m;
-      if ((m & 7) == 0 && l >= nr) break;
-      const float va = sc[0] + fmaxf(inb[0], bz0);
-      const float cb = wself + va;
-      const float ib = fmaxf(inb[1], cb);
-      const float vb = sc[1] + fmaxf(ib, bz1);
-      if (lane == m) {
-        if (cb > inb[1]) ina[1] = l;
-        inb[1] = ib;
+  for (int m = 0; m < L / 2; ++m) {
+    const int l = 2 * m;
+    if ((m & 7) == 0 && l >= nr) break;
+    const float va = sc[0] + fmaxf(inb[0], bz0);
+    const float cb = wself + va;
+    const float ib = fmaxf(inb[1], cb);
+    const float vb = sc[1] + fmaxf(ib, bz1);
+    if (lane == m) {
+      if (cb > inb[1]) ina[1] = l;
+      inb[1] = ib;
+    }
+    // this step's weights of the lane's rows, NEG where the row is not
+    // after the column
+    float w[2][2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int k = 2 * lane + s - (l + c) - 1;
+        w[s][c] = t.w[tri_off(l + c) + max(k, 0)];
+        if (k < 0) w[s][c] = NEG;
       }
-      // this step's weights of the lane's rows, NEG where the row is not
-      // after the column
-      float w[2][2];
+    const float x0 = __shfl_sync(FULL, va, m);
+    const float x1 = __shfl_sync(FULL, vb, m);
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int k = 2 * lane + s - (l + c) - 1;
-          w[s][c] = t.w[tri_off(l + c) + max(k, 0)];
-          if (k < 0) w[s][c] = NEG;
-        }
-      const float x0 = __shfl_sync(FULL, va, m);
-      const float x1 = __shfl_sync(FULL, vb, m);
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const float c0 = w[s][0] + x0;
-        if (c0 > inb[s]) ina[s] = l;
-        inb[s] = fmaxf(inb[s], c0);
-        const float c1 = w[s][1] + x1;
-        if (c1 > inb[s]) ina[s] = l + 1;
-        inb[s] = fmaxf(inb[s], c1);
-      }
+    for (int s = 0; s < 2; ++s) {
+      const float c0 = w[s][0] + x0;
+      if (c0 > inb[s]) ina[s] = l;
+      inb[s] = fmaxf(inb[s], c0);
+      const float c1 = w[s][1] + x1;
+      if (c1 > inb[s]) ina[s] = l + 1;
+      inb[s] = fmaxf(inb[s], c1);
     }
   }
   // outputs from each row's final state
@@ -458,7 +454,7 @@ __device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
     const float best = fmaxf(inb[s], bv[s]);
     const bool take = best > 0.f && l < nr;
     v[s] = fl[s] & 4 ? sc[s] + (take ? best : 0.f) : NEG;
-    const int il = inblock && (t.l2[l] >> ina[s] & 1) ? 2 : 1;
+    const int il = t.l2[l] >> ina[s] & 1 ? 2 : 1;
     o.V[i] = v[s];
     o.bp[i] = take ? (use_in ? b0 + ina[s] : ba[s]) : -1;
     o.lane[i] = take ? (use_in ? il : bl[s]) : 0;
@@ -499,62 +495,46 @@ __device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
   }
 }
 
-// Warp tier (N = L): one problem per warp, threads / 32 warps a block, a
-// Tri per warp in dynamic shared memory; persistent grid.
-__global__ void __launch_bounds__(256)
-sdp_blocked_warp_kernel(Frag f, Out o, int* __restrict__ counter, Pwl ph,
-                        int B, int phases) {
+// Warp tier (N = L): one problem per block of one warp, its Tri in
+// dynamic shared memory.
+__global__ void __launch_bounds__(32)
+sdp_blocked_warp_kernel(Frag f, Out o, Pwl ph) {
   extern __shared__ int4 dyn[];
   pwl_load(s_pw, ph);
   pwl_buckets_load(s_pb, threadIdx.x, blockDim.x);
   __syncthreads();
   const Cost cost;
-  const int lane = threadIdx.x & 31;
-  const bool inblock = phases & PH_BLOCK;
-  Tri& t = reinterpret_cast<Tri*>(dyn)[threadIdx.x >> 5];
-  for (int it = 0;; ++it) {
-    // the next problem: from the counter, or (no counter: the grid holds
-    // every problem) this warp's own
-    int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-    if (counter)
-      p = __shfl_sync(FULL, lane == 0 ? atomicAdd(counter, 1) : 0, 0);
-    else if (it)
-      break;
-    if (p >= B) break;
-    const size_t off = (size_t)p * L;
-    const Frag g = f.at(off);
-    const Out q = o.at(off);
-    // n_eff: past the last row with a valid or lane bit, the answer is
-    // the constant (NEG, -1, 0)
-    const unsigned a0 = __ballot_sync(
-        FULL, g.valid[lane] | g.lane1[lane] | g.lane2[lane]);
-    const unsigned a1 = __ballot_sync(
-        FULL, g.valid[lane + 32] | g.lane1[lane + 32] | g.lane2[lane + 32]);
-    const int nr = a1 ? 64 - __clz(a1) : 32 - __clz(a0);
-    if (nr == 0) {
-      write_empty(q, lane, L, 32);
-      continue;
-    }
-    record(g, 0, t, lane);
-    __syncwarp();
-    if (inblock) {
-      triangle(t, nr, cost, 0, 1, lane);
-      __syncwarp();
-    }
-    resolve(q, 0, nr, t, nullptr, nullptr, inblock, lane);
-    __syncwarp();
+  const int lane = threadIdx.x;
+  Tri& t = *reinterpret_cast<Tri*>(dyn);
+  const size_t off = (size_t)blockIdx.x * L;
+  const Frag g = f.at(off);
+  const Out q = o.at(off);
+  // n_eff: past the last row with a valid or lane bit, the answer is the
+  // constant (NEG, -1, 0)
+  const unsigned a0 =
+      __ballot_sync(FULL, g.valid[lane] | g.lane1[lane] | g.lane2[lane]);
+  const unsigned a1 = __ballot_sync(
+      FULL, g.valid[lane + 32] | g.lane1[lane + 32] | g.lane2[lane + 32]);
+  const int nr = a1 ? 64 - __clz(a1) : 32 - __clz(a0);
+  if (nr == 0) {
+    write_empty(q, lane, L, 32);
+    return;
   }
+  record(g, 0, t, lane);
+  __syncwarp();
+  triangle(t, nr, cost, 0, 1, lane);
+  __syncwarp();
+  resolve(q, 0, nr, t, nullptr, nullptr, lane);
 }
 
-// CTA tier (N >= 2L): one problem per block at a time, persistent grid.
-// Dynamic shared memory: Tri[2], Staged[2], the running bests (value and
-// index per lane and row), the receiver lists per lane, their block
-// starts [2][N/L + 1] and the rows' lane bits (cta_smem).
+// CTA tier (N >= 2L): one problem per block.  Dynamic shared memory:
+// Tri[2], Staged[2], the running bests (value and index per lane and
+// row), the receiver lists per lane, their block starts [2][N/L + 1] and
+// the rows' lane bits (cta_smem).
 __global__ void __launch_bounds__(MAXT)
-sdp_blocked_cta_kernel(Frag f, Out o, int* __restrict__ counter, Pwl ph,
-                       int B, int N, int phases) {
+sdp_blocked_cta_kernel(Frag f, Out o, Pwl ph, int N) {
   extern __shared__ int4 dyn[];
-  __shared__ int s_prob, s_last;
+  __shared__ int s_last;
   Tri* tri = reinterpret_cast<Tri*>(dyn);
   Staged* st = reinterpret_cast<Staged*>(tri + 2);
   float* rbv = reinterpret_cast<float*>(st + 2);
@@ -567,149 +547,111 @@ sdp_blocked_cta_kernel(Frag f, Out o, int* __restrict__ counter, Pwl ph,
   const int NB1 = N / L + 1;
   const int tid = threadIdx.x, NT = blockDim.x, lane = tid & 31;
   const int warp = tid >> 5;
-  const bool do_fold = phases & PH_FOLD, inblock = phases & PH_BLOCK;
   pwl_load(s_pw, ph);
   pwl_buckets_load(s_pb, tid, NT);
-  for (int it = 0;; ++it) {
-    __syncthreads();
-    if (tid == 0) {
-      // the next problem: from the counter, or (no counter: the grid
-      // holds every problem) this block's own
-      s_prob = counter ? atomicAdd(counter, 1) : it ? B : (int)blockIdx.x;
-      s_last = -1;
-    }
-    __syncthreads();
-    const int p = s_prob;
-    if (p >= B) break;
-    const size_t off = (size_t)p * N;
-    const Frag g = f.at(off);
-    const Out q = o.at(off);
-    const Cost cost;
-    // n_eff: past the last row with a valid or lane bit, the answer is
-    // the constant (NEG, -1, 0); the lane bits kept for the lists
-    int last = -1;
-    for (int i = tid; i < N; i += NT) {
-      const int x = g.lane1[i] | (g.lane2[i] << 1);
-      fl[i] = x;
-      if (x | g.valid[i]) last = i;
-    }
-    // block 0's record, its loads beside the scan's (harmless when the
-    // problem turns out empty)
-    if (warp == 1) record(g, 0, tri[0], lane);
+  if (tid == 0) s_last = -1;
+  __syncthreads();
+  const size_t off = (size_t)blockIdx.x * N;
+  const Frag g = f.at(off);
+  const Out q = o.at(off);
+  const Cost cost;
+  // n_eff: past the last row with a valid or lane bit, the answer is
+  // the constant (NEG, -1, 0); the lane bits kept for the lists
+  int last = -1;
+  for (int i = tid; i < N; i += NT) {
+    const int x = g.lane1[i] | (g.lane2[i] << 1);
+    fl[i] = x;
+    if (x | g.valid[i]) last = i;
+  }
+  // block 0's record, its loads beside the scan's (harmless when the
+  // problem turns out empty)
+  if (warp == 1) record(g, 0, tri[0], lane);
 #pragma unroll
-    for (int o2 = 16; o2 > 0; o2 >>= 1)
-      last = max(last, __shfl_xor_sync(FULL, last, o2));
-    if (lane == 0 && last >= 0) atomicMax(&s_last, last);
+  for (int o2 = 16; o2 > 0; o2 >>= 1)
+    last = max(last, __shfl_xor_sync(FULL, last, o2));
+  if (lane == 0 && last >= 0) atomicMax(&s_last, last);
+  __syncthreads();
+  const int neff = s_last + 1, nb = (neff + L - 1) / L;
+  write_empty(q, nb * L + tid, N, NT);
+  if (nb == 0) return;
+  if (warp == 0) {
+    // receiver lists per lane in row order, and each block's start
+    const unsigned lt = (1u << lane) - 1;
+    int c0 = 0, c1 = 0;
+    for (int base = 0; base < nb * L; base += 32) {
+      if ((base & (L - 1)) == 0 && lane == 0) {
+        rstart[base / L] = c0;
+        rstart[NB1 + base / L] = c1;
+      }
+      const int i = base + lane;
+      const bool h1 = fl[i] & 1, h2 = fl[i] & 2;
+      const unsigned m1 = __ballot_sync(FULL, h1);
+      const unsigned m2 = __ballot_sync(FULL, h2);
+      if (h1) rc[c0 + __popc(m1 & lt)] = (uint16_t)i;
+      if (h2) rc[N + c1 + __popc(m2 & lt)] = (uint16_t)i;
+      c0 += __popc(m1);
+      c1 += __popc(m2);
+    }
+    if (lane == 0) {
+      rstart[nb] = c0;
+      rstart[NB1 + nb] = c1;
+    }
+  }
+  for (int i = tid; i < nb * L; i += NT) {
+    rbv[i] = NEG;
+    rbv[N + i] = NEG;
+    rba[i] = 0;
+    rba[N + i] = 0;
+  }
+  triangle(tri[0], min(neff, L), cost, warp, NT >> 5, lane);
+  __syncthreads();
+  for (int b = 0; b < nb; ++b) {
+    const int b0 = b * L;
+    const Staged& prev = st[(b + 1) & 1];  // block b - 1
+    // A: block b-1 into block b's receivers
+    if (b > 0)
+      fold<true>(g, prev, tri[b & 1], b0, rcv, rstart[b], rstart[b + 1],
+                 rstart[NB1 + b], rstart[NB1 + b + 1], rb, cost, tid,
+                 NT);
     __syncthreads();
-    const int neff = s_last + 1, nb = (neff + L - 1) / L;
-    write_empty(q, nb * L + tid, N, NT);
-    if (nb == 0) continue;
+    // B: resolve block b; beside it, block b-1 into every later block's
+    // receivers and block b+1's rows and triangle
     if (warp == 0) {
-      // receiver lists per lane in row order, and each block's start
-      const unsigned lt = (1u << lane) - 1;
-      int c0 = 0, c1 = 0;
-      for (int base = 0; base < nb * L; base += 32) {
-        if ((base & (L - 1)) == 0 && lane == 0) {
-          rstart[base / L] = c0;
-          rstart[NB1 + base / L] = c1;
-        }
-        const int i = base + lane;
-        const bool h1 = fl[i] & 1, h2 = fl[i] & 2;
-        const unsigned m1 = __ballot_sync(FULL, h1);
-        const unsigned m2 = __ballot_sync(FULL, h2);
-        if (h1) rc[c0 + __popc(m1 & lt)] = (uint16_t)i;
-        if (h2) rc[N + c1 + __popc(m2 & lt)] = (uint16_t)i;
-        c0 += __popc(m1);
-        c1 += __popc(m2);
-      }
-      if (lane == 0) {
-        rstart[nb] = c0;
-        rstart[NB1 + nb] = c1;
+      resolve(q, b0, min(neff - b0, L), tri[b & 1], &rb, &st[b & 1], lane);
+    } else {
+      // block b+1's record first (its loads overlap the fold), the
+      // folders' named barrier 1, then its triangle
+      const bool next = b + 1 < nb;
+      if (next && warp == 1) record(g, b0 + L, tri[(b + 1) & 1], lane);
+      if (b > 0)
+        fold<false>(g, prev, tri[b & 1], b0, rcv, rstart[b + 1],
+                    rstart[nb], rstart[NB1 + b + 1], rstart[NB1 + nb], rb,
+                    cost, tid - 32, NT - 32);
+      if (next) {
+        asm volatile("bar.sync 1, %0;" ::"r"(NT - 32) : "memory");
+        triangle(tri[(b + 1) & 1], min(neff - b0 - L, L), cost, warp - 1,
+                 (NT >> 5) - 1, lane);
       }
     }
-    for (int i = tid; i < nb * L; i += NT) {
-      rbv[i] = NEG;
-      rbv[N + i] = NEG;
-      rba[i] = 0;
-      rba[N + i] = 0;
-    }
-    if (inblock) triangle(tri[0], min(neff, L), cost, warp, NT >> 5, lane);
     __syncthreads();
-    for (int b = 0; b < nb; ++b) {
-      const int b0 = b * L;
-      const Staged& prev = st[(b + 1) & 1];  // block b - 1
-      // A: block b-1 into block b's receivers
-      if (b > 0 && do_fold)
-        fold<true>(g, prev, tri[b & 1], b0, rcv, rstart[b], rstart[b + 1],
-                   rstart[NB1 + b], rstart[NB1 + b + 1], rb, cost, tid,
-                   NT);
-      __syncthreads();
-      // B: resolve block b; beside it, block b-1 into every later block's
-      // receivers and block b+1's rows and triangle
-      if (warp == 0) {
-        resolve(q, b0, min(neff - b0, L), tri[b & 1], &rb, &st[b & 1],
-                inblock, lane);
-      } else {
-        // block b+1's record first (its loads overlap the fold), the
-        // folders' named barrier 1, then its triangle
-        const bool next = b + 1 < nb;
-        if (next && warp == 1) record(g, b0 + L, tri[(b + 1) & 1], lane);
-        if (b > 0 && do_fold)
-          fold<false>(g, prev, tri[b & 1], b0, rcv, rstart[b + 1],
-                      rstart[nb], rstart[NB1 + b + 1], rstart[NB1 + nb], rb,
-                      cost, tid - 32, NT - 32);
-        if (next && inblock) {
-          asm volatile("bar.sync 1, %0;" ::"r"(NT - 32) : "memory");
-          triangle(tri[(b + 1) & 1], min(neff - b0 - L, L), cost, warp - 1,
-                   (NT >> 5) - 1, lane);
-        }
-      }
-      __syncthreads();
-    }
   }
 }
 
-// Blocks of tier `tier`'s kernel at (threads, smem) that fit on the card
-// at once, per device, cached (the launch path is timed per call).  The
-// kernel's dynamic shared memory limit only ever rises: an entry cached
-// at a larger smem must stay launchable.
-cudaError_t resident_blocks(int tier, const void* kern, int threads,
-                            int smem, int* blocks) {
-  struct Entry {
-    const void* kern;
-    int dev, threads, smem, blocks;
-  };
-  static Entry seen[16];
-  static int n = 0, raised[2][64] = {{0}};
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
+// Let the CTA tier's kernel take the shared memory of its largest
+// bucket, once per device (a launch's own need is checked against
+// cta_smem(N)).
+cudaError_t allow_cta_smem() {
+  static std::atomic<unsigned long long> done{0};  // a bit per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  for (int k = 0; k < n && k < 16; ++k)
-    if (seen[k].kern == kern && seen[k].dev == dev &&
-        seen[k].threads == threads && seen[k].smem == smem) {
-      *blocks = seen[k].blocks;
-      return cudaSuccess;
-    }
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (smem > raised[tier][dev]) {
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    raised[tier][dev] = smem;
-  }
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  seen[n % 16] = {kern, dev, threads, smem, per_sm * sms};
-  ++n;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
+  if (done.load() >> dev & 1) return cudaSuccess;
+  e = cudaFuncSetAttribute((const void*)sdp_blocked_cta_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)cta_smem(8192));
+  if (e == cudaSuccess) done.fetch_or(1ull << dev);
+  return e;
 }
 
 }  // namespace
@@ -719,17 +661,14 @@ extern "C" const char* lra_errstr(int e) {
 }
 
 // qS, qE, tS, tE: int32 [B, N]; score: f32; lane1, lane2, valid: uint8;
-// V: f32, bp, lane: int32 [B, N]; counter: one int32 of scratch;
-// pwl_host: slope[25], inter[25], ceiling1, ceiling2 (f32, host memory).
-// tier (0 warp, 1 CTA), threads and smem from ops/sdp_blocked.py:
-// sdp_plan; phases: PH_FOLD | PH_BLOCK (3), or one of them alone for a
-// timing of the other's absence (the outputs are then not the DP's).
+// V: f32, bp, lane: int32 [B, N]; pwl_host: slope[25], inter[25],
+// ceiling1, ceiling2 (f32, host memory); tier (0 warp, 1 CTA), threads and
+// smem from ops/sdp_blocked.py:sdp_plan.  One thread block a problem.
 extern "C" int lra_chain_scores_blocked(
     const void* qS, const void* qE, const void* tS, const void* tE,
     const void* score, const void* lane1, const void* lane2,
-    const void* valid, void* V, void* bp, void* lane, void* counter,
-    const void* pwl_host, int B, int N, int tier, int threads, int smem,
-    int phases, void* stream) {
+    const void* valid, void* V, void* bp, void* lane, const void* pwl_host,
+    int B, int N, int tier, int threads, int smem, void* stream) {
   if (B == 0) return 0;
   if (N < L || N % L || N > 8192 || threads < 32 || threads % 32 ||
       threads > MAXT)
@@ -742,36 +681,19 @@ extern "C" int lra_chain_scores_blocked(
                   (const uint8_t*)lane2, (const uint8_t*)valid};
   const Out o = {(float*)V, (int*)bp, (int*)lane};
   const cudaStream_t s = (cudaStream_t)stream;
-  const void* kern;
-  int units;
   if (tier == 0) {
-    if (N != L || threads > 256 ||
-        (size_t)smem < (size_t)(threads / 32) * sizeof(Tri))
+    if (N != L || threads != 32 || (size_t)smem < sizeof(Tri))
       return (int)cudaErrorInvalidValue;
-    kern = (const void*)sdp_blocked_warp_kernel;
-    units = (B + threads / 32 - 1) / (threads / 32);
+    sdp_blocked_warp_kernel<<<B, threads, smem, s>>>(f, o, p);
   } else if (tier == 1) {
-    if (threads < 64 || (size_t)smem < cta_smem(N))
+    if (threads < 64 || (size_t)smem < cta_smem(N) ||
+        (size_t)smem > cta_smem(8192))
       return (int)cudaErrorInvalidValue;
-    kern = (const void*)sdp_blocked_cta_kernel;
-    units = B;
+    const cudaError_t e = allow_cta_smem();
+    if (e != cudaSuccess) return (int)e;
+    sdp_blocked_cta_kernel<<<B, threads, smem, s>>>(f, o, p, N);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  int fit = 0;
-  cudaError_t e = resident_blocks(tier, kern, threads, smem, &fit);
-  if (e != cudaSuccess) return (int)e;
-  // a grid that holds every problem at once takes them by index, with no
-  // counter to clear; a larger bucket shares the counter
-  int* ctr = units <= fit ? nullptr : (int*)counter;
-  if (ctr && (e = cudaMemsetAsync(ctr, 0, sizeof(int), s)) != cudaSuccess)
-    return (int)e;
-  const int grid = units < fit ? units : fit;
-  if (tier == 0)
-    sdp_blocked_warp_kernel<<<grid, threads, smem, s>>>(f, o, ctr, p, B,
-                                                        phases);
-  else
-    sdp_blocked_cta_kernel<<<grid, threads, smem, s>>>(f, o, ctr, p, B, N,
-                                                       phases);
   return (int)cudaGetLastError();
 }

@@ -154,33 +154,22 @@ def _pwl_host_params(pwl_key):
 _TRI_BYTES = 64 * 16 + 64 * 8 + 4 * (64 * 63 // 2) + 8 * 64
 _STAGED_BYTES = 2 * 64 * 16 + 2 * 64 * 4 + 2 * 64 * 4 + 16
 SMEM_MAX = _ext.SMEM_MAX
-_WARP_PPB = 8               # warp tier: problems (warps) a block, full bucket
 
 
-def sdp_plan(N: int, B: int | None = None, sms: int = 132) -> dict:
-    """Launch plan of csrc/sdp_blocked.cu for B problems of N rows on a
-    card of `sms` SMs: the tier (0: one problem per warp, for N = 64,
-    whose one block has no cross-block term; 1: one problem per block of
-    threads, one resolver warp and the rest folding), threads per block
-    and dynamic shared memory in bytes.  The warp tier puts 8 problems in
-    a block when the bucket gives every SM such a block, else one, so
-    that a small bucket spreads over the SMs.  The CTA tier's threads
-    grow with N (the folds grow as N^2 while the in-block pass stays one
-    warp): 128 up to N = 256, N / 2 up to 1024.  Both grids are
-    persistent: one that holds every problem at once takes them by index,
-    a smaller one from an atomic counter."""
+def sdp_plan(N: int) -> dict:
+    """Launch plan of csrc/sdp_blocked.cu for a bucket of N rows: the tier
+    (0: one problem per block of one warp, for N = 64, whose one block has
+    no cross-block term; 1: one problem per block of threads, one resolver
+    warp and the rest folding), threads per block and dynamic shared
+    memory in bytes.  The CTA tier's threads grow with N (the folds grow
+    as N^2 while the in-block pass stays one warp): 128 up to N = 256,
+    N / 2 up to 1024.  The grid is one block a problem."""
     if N % 64 or not 64 <= N <= 8192:
         raise ValueError(f"chain_scores_blocked: N={N} is not a multiple of "
                          "64 in 64..8192")
     if N == 64:
-        full = B is not None and B >= _WARP_PPB * sms
-        return warp_plan(_WARP_PPB if full else 1)
+        return {"tier": 0, "threads": 32, "smem": _TRI_BYTES}
     return cta_plan(N, min(1024, max(128, N // 2)))
-
-
-def warp_plan(ppb: int) -> dict:
-    """The warp tier (N = 64 only) with ppb problems a block."""
-    return {"tier": 0, "threads": 32 * ppb, "smem": ppb * _TRI_BYTES}
 
 
 def cta_plan(N: int, threads: int) -> dict:
@@ -194,13 +183,11 @@ def cta_plan(N: int, threads: int) -> dict:
 
 
 def plan_variants(N: int) -> list:
-    """Every plan the kernel takes at N, for the tests: sdp_plan's for a
-    small and for a full bucket (1 << 20 problems fill any card), and the
+    """Every plan the kernel takes at N, for the tests: sdp_plan's, and the
     CTA tier at its fewest and most threads (at N = 64 too: one block and
     no cross-block term)."""
     out = []
-    for p in (sdp_plan(N, 1), sdp_plan(N, 1 << 20), cta_plan(N, 128),
-              cta_plan(N, 1024)):
+    for p in (sdp_plan(N), cta_plan(N, 128), cta_plan(N, 1024)):
         if p not in out:
             out.append(p)
     return out
@@ -213,21 +200,19 @@ def plan_str(plan) -> str:
 _PLAN_KEYS = ("tier", "threads", "smem")
 _FRAG_NAMES = ("qS", "qE", "tS", "tE", "score", "lane1", "lane2", "valid")
 _FRAG_DTYPES = (torch.int32,) * 4 + (torch.float32,) + (torch.bool,) * 3
-_SDP_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+_SDP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_args(N: int, B: int, sms: int) -> tuple:
-    plan = sdp_plan(N, B, sms)
+def _plan_args(N: int) -> tuple:
+    plan = sdp_plan(N)
     return tuple(plan[k] for k in _PLAN_KEYS)
 
 
 def _chain_scores_blocked_cuda(qS, qE, tS, tE, score, lane1, lane2, valid,
-                               pwl_key, L, plan=None, phases=3):
+                               pwl_key, L, plan=None):
     """K2 on the card with sdp_plan's plan for this bucket (or the one
-    given).  phases: 3 runs the DP; 1 skips the triangles and in-block
-    pushes, 2 the cross-block folds (timings of a part's absence; the
-    outputs are then not the DP's)."""
+    given)."""
     B, N = qS.shape
     if L != 64 or N % 64 or N > 8192:
         raise ValueError(f"chain_scores_blocked kernel: needs L=64 and "
@@ -243,14 +228,12 @@ def _chain_scores_blocked_cuda(qS, qE, tS, tE, score, lane1, lane2, valid,
     lane = torch.empty((B, N), dtype=torch.int32, device=dev)
     if B == 0:
         return V, bp, lane
-    counter = torch.empty(1, dtype=torch.int32, device=dev)
-    args = (_plan_args(N, B, _ext.sm_count(dev.index or 0))
-            if plan is None else tuple(plan[k] for k in _PLAN_KEYS))
+    args = (_plan_args(N) if plan is None
+            else tuple(plan[k] for k in _PLAN_KEYS))
     _ext.launch("chain_scores_blocked", "sdp_blocked",
                 "lra_chain_scores_blocked", _SDP_ARGS,
-                *[t.data_ptr() for t in frags + (V, bp, lane, counter)],
-                ctypes.addressof(_pwl_host_params(pwl_key)), B, N, *args,
-                int(phases))
+                *[t.data_ptr() for t in frags + (V, bp, lane)],
+                ctypes.addressof(_pwl_host_params(pwl_key)), B, N, *args)
     return V, bp, lane
 
 

@@ -103,10 +103,10 @@ def blocked_bucket(rng, B, N, kind, dev):
     (13, 64, "tie"), (13, 128, "tie"), (3, 512, "tie"), (2, 2048, "tie")])
 def test_blocked_kernel_tiers_match_plain(cuda_device, B, N, kind):
     """K2 at every tier (one problem a warp at N = 64, one a block above),
-    B = 1, 13, 512 and 4096 (more problems than the grid holds: the
-    problem counter), N up to 8192, on
-    invalid rows that keep lane bits, an all-invalid problem with lane
-    bits, an empty problem, and tie-dense problems; through the wrapper
+    B = 1, 13, 512 and 4096 (more blocks than fit the card at once), N up
+    to 8192, on invalid rows that keep lane bits, an all-invalid problem
+    with lane bits, an empty problem, and tie-dense problems; through the
+    wrapper
     and with every launch plan forced: V bit for bit, bp and lane
     exactly equal to the plain twin."""
     key = from_options(preset("ccs")).static_key()

@@ -15,44 +15,40 @@ from lra_tpu_torch.sim import sdp_bucket
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("B", [None, 1, 8, 512, 1056, 65536])
-def test_sdp_plan_covers_every_bucket(B):
-    for N in driver._BUCKETS:
-        p = sb.sdp_plan(N, B)
-        assert p["threads"] % 32 == 0 and p["smem"] <= sb.SMEM_MAX - 1024, N
-        if N == 64:
-            assert p["tier"] == 0, N
-            assert p["threads"] in (32, 32 * sb._WARP_PPB), N
-            assert p["smem"] == p["threads"] // 32 * sb._TRI_BYTES, N
-        else:
-            assert p["tier"] == 1 and 128 <= p["threads"] <= 1024, N
-            # Tri[2], Staged[2], running bests (f32 + int32 per lane and
-            # row), receiver lists (uint16 per lane and row), block starts,
-            # lane bits (a byte a row)
-            assert p["smem"] == (2 * sb._TRI_BYTES + 2 * sb._STAGED_BYTES
-                                 + N * (2 * 4 + 2 * 4 + 2 * 2 + 1)
-                                 + 2 * 4 * (N // 64 + 1)), N
-        for v in sb.plan_variants(N):
-            assert v["smem"] <= sb.SMEM_MAX - 1024, (N, v)
-            assert v["tier"] == 1 or N == 64, (N, v)
+@pytest.mark.parametrize("N", driver._BUCKETS)
+def test_sdp_plan_covers_every_bucket(N):
+    p = sb.sdp_plan(N)
+    assert p["threads"] % 32 == 0 and p["smem"] <= sb.SMEM_MAX - 1024, N
+    if N == 64:
+        assert p == {"tier": 0, "threads": 32, "smem": sb._TRI_BYTES}, N
+    else:
+        assert p["tier"] == 1 and 128 <= p["threads"] <= 1024, N
+        # Tri[2], Staged[2], running bests (f32 + int32 per lane and row),
+        # receiver lists (uint16 per lane and row), block starts, lane
+        # bits (a byte a row)
+        assert p["smem"] == (2 * sb._TRI_BYTES + 2 * sb._STAGED_BYTES
+                             + N * (2 * 4 + 2 * 4 + 2 * 2 + 1)
+                             + 2 * 4 * (N // 64 + 1)), N
+    for v in sb.plan_variants(N):
+        assert v["smem"] <= sb.SMEM_MAX - 1024, (N, v)
+        assert v["tier"] == 1 or N == 64, (N, v)
+    assert sb.plan_variants(N)[0] == p
 
 
-@pytest.mark.parametrize("N,B,tier,threads", [
-    (64, 8, 0, 32), (64, 256, 0, 32), (64, 1056, 0, 256), (64, None, 0, 32),
-    (128, 8, 1, 128), (256, 512, 1, 128), (512, 512, 1, 256),
-    (1024, 8, 1, 512), (2048, 1, 1, 1024), (8192, 1, 1, 1024)])
-def test_sdp_plan_tiers(N, B, tier, threads):
-    """On a 132-SM card: one problem a warp at N = 64, 8 a block once the
-    bucket gives every SM such a block; above, one problem a block of
-    128 threads up to N = 256, N / 2 up to 1024."""
-    p = sb.sdp_plan(N, B, sms=132)
+@pytest.mark.parametrize("N,tier,threads", [
+    (64, 0, 32), (128, 1, 128), (256, 1, 128), (512, 1, 256),
+    (1024, 1, 512), (2048, 1, 1024), (4096, 1, 1024), (8192, 1, 1024)])
+def test_sdp_plan_tiers(N, tier, threads):
+    """One problem a block of one warp at N = 64; above, one problem a
+    block of 128 threads up to N = 256, N / 2 up to 1024."""
+    p = sb.sdp_plan(N)
     assert (p["tier"], p["threads"]) == (tier, threads)
 
 
-@pytest.mark.parametrize("N", [32, 100, 8256])
+@pytest.mark.parametrize("N", [0, 32, 100, 8256, 16384])
 def test_sdp_plan_refuses(N):
     with pytest.raises(ValueError):
-        sb.sdp_plan(N, 8)
+        sb.sdp_plan(N)
 
 
 def test_sdp_bucket_edges_plain():

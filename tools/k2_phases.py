@@ -10,8 +10,8 @@ phases, builds it with nvcc into lra_tpu_torch/_build/k2_phases/, runs it
 with sdp_plan's plan on each recorded input of N >= 128 (the CTA tier),
 checks V/bp/lane against the plain twin, and prints the cycles per
 problem, in µs at the card's maximum SM clock, for lane 0 of warp 0
-(the resolver) and of warp 1 (the first folding warp): fetching the
-problem, the set-up (n_eff, receiver lists, block 0's triangle), phase
+(the resolver) and of warp 1 (the first folding warp): loading the
+PWL tables, the set-up (n_eff, receiver lists, block 0's triangle), phase
 A (the fold into the next block, all threads), phase B (the resolve; the
 fold into later blocks; the next triangle) and the wait at B's barrier.
 The marks are anchored on lines of the source; the script stops if one
@@ -27,28 +27,27 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("set-up", "A: fold into the next block", "B: resolve",
           "B: next record, fold into later blocks", "B: next triangle",
-          "B: barrier", "fetch")
+          "B: barrier", "PWL tables")
 MARKS = (
-    ("  pwl_buckets_load(s_pb, tid, NT);\n  for (int it = 0;; ++it) {\n",
-     "  pwl_buckets_load(s_pb, tid, NT);\n  long long tlast = clock64();\n"
-     "  for (int it = 0;; ++it) {\n"),
-    ("    const int p = s_prob;\n    if (p >= B) break;\n",
-     "    const int p = s_prob;\n    if (p >= B) break;\n    MARK(6);\n"
-     "    if (tid == 0) atomicAdd(&g_prof[0][15], 1ull);\n"),
-    ("lane);\n    __syncthreads();\n    for (int b = 0;",
-     "lane);\n    __syncthreads();\n    MARK(0);\n    for (int b = 0;"),
-    ("                   NT);\n      __syncthreads();\n",
-     "                   NT);\n      __syncthreads();\n      MARK(1);\n"
-     "      if (tid == 0) atomicAdd(&g_prof[0][14], 1ull);\n"),
-    ("                inblock, lane);\n",
-     "                inblock, lane);\n        MARK(2);\n"),
-    ("                      cost, tid - 32, NT - 32);\n",
-     "                      cost, tid - 32, NT - 32);\n"
-     "        MARK(3);\n"),
-    ("                   (NT >> 5) - 1, lane);\n        }\n      }\n"
-     "      __syncthreads();\n",
-     "                   (NT >> 5) - 1, lane);\n        }\n        MARK(4);\n"
-     "      }\n      __syncthreads();\n      MARK(5);\n"),
+    ("  const int warp = tid >> 5;\n  pwl_load(s_pw, ph);\n",
+     "  const int warp = tid >> 5;\n  long long tlast = clock64();\n"
+     "  pwl_load(s_pw, ph);\n"),
+    ("  if (tid == 0) s_last = -1;\n  __syncthreads();\n",
+     "  if (tid == 0) s_last = -1;\n  __syncthreads();\n  MARK(6);\n"
+     "  if (tid == 0) atomicAdd(&g_prof[0][15], 1ull);\n"),
+    ("lane);\n  __syncthreads();\n  for (int b = 0;",
+     "lane);\n  __syncthreads();\n  MARK(0);\n  for (int b = 0;"),
+    ("                 NT);\n    __syncthreads();\n",
+     "                 NT);\n    __syncthreads();\n    MARK(1);\n"
+     "    if (tid == 0) atomicAdd(&g_prof[0][14], 1ull);\n"),
+    ("&st[b & 1], lane);\n",
+     "&st[b & 1], lane);\n      MARK(2);\n"),
+    ("                    cost, tid - 32, NT - 32);\n",
+     "                    cost, tid - 32, NT - 32);\n      MARK(3);\n"),
+    ("                 (NT >> 5) - 1, lane);\n      }\n    }\n"
+     "    __syncthreads();\n",
+     "                 (NT >> 5) - 1, lane);\n      }\n      MARK(4);\n"
+     "    }\n    __syncthreads();\n    MARK(5);\n"),
 )
 HEAD = """namespace {
 __device__ unsigned long long g_prof[2][16];
@@ -120,18 +119,17 @@ def main() -> int:
         B, N = a[0].shape
         if N < 128:
             continue
-        plan = sb.sdp_plan(N, B, _ext.sm_count(0))
+        plan = sb.sdp_plan(N)
         ref = sb.chain_scores_blocked_plain(*a, key)
         V = torch.empty((B, N), dtype=torch.float32, device="cuda")
         bp = torch.empty((B, N), dtype=torch.int32, device="cuda")
         ln = torch.empty_like(bp)
-        counter = torch.empty(4, dtype=torch.int32, device="cuda")
         buf = (ctypes.c_longlong * 32)()
         for _ in range(2):      # the first run warms up
             lib.lra_prof_read(buf)
-            rc = fn(*[x.data_ptr() for x in a + [V, bp, ln, counter]],
+            rc = fn(*[x.data_ptr() for x in a + [V, bp, ln]],
                     ctypes.addressof(sb._pwl_host_params(key)), B, N,
-                    *[plan[k] for k in sb._PLAN_KEYS], 3,
+                    *[plan[k] for k in sb._PLAN_KEYS],
                     torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"k2_phases: launch failed ({rc})")

@@ -16,10 +16,11 @@ redesign, or the planned one of this tree (the plan from this tree's
 plan function).  On each path's largest input every kernel must equal
 this tree's plain twin bit for bit; then CUDA-event medians in turns
 (each runner, this tree's wrapper twice, each runner again in reverse
-order), this tree's also with phases skipped (K4: the walk; K2: the
-cross-block folds, the in-block pass); and each runner BACK_TO_BACK
+order), K4 of this tree also with its walk skipped; and each runner
+BACK_TO_BACK
 times between two events, the card's time per launch with the host's
-work hidden.  With --phases, each OTHER_TREE with the old K2 entry point
+work hidden, and BACK_TO_BACK times under torch.profiler, the device
+time of its kernels a call.  With --phases, each OTHER_TREE with the old K2 entry point
 is also built with its serial in-block pass and, separately, its
 cross-block loop cut out, and timed: a phase split by subtraction (those
 copies' outputs are not checked).  Needs a CUDA device; prints the
@@ -62,10 +63,10 @@ def nvcc_build(src: str, out_dir: str, lib: str, patch=None) -> str:
     return so
 
 
-def is_planned(src: str) -> bool:
-    """Whether a kernel source has the planned entry point (a persistent
-    grid's problem counter) or the one-CTA-per-problem one."""
-    return "void* counter" in open(src).read()
+def is_planned(spec, src: str) -> bool:
+    """Whether a kernel source has the planned entry point (the one that
+    takes a launch plan) or the one-CTA-per-problem one."""
+    return spec.planned_mark in open(src).read()
 
 
 class K4:
@@ -73,6 +74,7 @@ class K4:
     indel) and kband."""
 
     lib, src = "banded_global", "banded_global.cu"
+    planned_mark = "void* counter"      # the persistent grid's
 
     def __init__(self, args, kw):
         self.q, self.t, self.qlen, self.tlen = [a.cuda() for a in args[:4]]
@@ -160,6 +162,7 @@ class K2:
     valid, pwl_key)."""
 
     lib, src = "sdp_blocked", "sdp_blocked.cu"
+    planned_mark = "int tier"
     # the one-CTA-per-problem design of an earlier tree, a phase cut out
     patches = {
         "no in-block pass": ("    if (warp == 0) {\n      const bool va0",
@@ -173,44 +176,37 @@ class K2:
         self.key = args[8]
 
     def shape(self) -> str:
-        from lra_tpu_torch.ops import _ext
         from lra_tpu_torch.ops import sdp_blocked as sb
 
         B, N = self.args[0].shape
-        out = f"B={B} N={N} ({int(self.args[7].sum())} valid rows)"
-        if hasattr(sb, "sdp_plan"):
-            out += "; " + sb.plan_str(sb.sdp_plan(N, B, _ext.sm_count(0)))
-        return out
+        return (f"B={B} N={N} ({int(self.args[7].sum())} valid rows); "
+                + sb.plan_str(sb.sdp_plan(N)))
 
     @staticmethod
     def entry(so: str, planned: bool):
         fn = ctypes.CDLL(so).lra_chain_scores_blocked
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * (13 if planned else 12) + \
-            [ctypes.c_int] * (2 + (len(PLAN_KEYS) + 1 if planned else 0)) + \
+        fn.argtypes = [ctypes.c_void_p] * 12 + \
+            [ctypes.c_int] * (2 + (len(PLAN_KEYS) if planned else 0)) + \
             [ctypes.c_void_p]
         return fn
 
     def runner(self, fn, planned):
         import torch
 
-        from lra_tpu_torch.ops import _ext
         from lra_tpu_torch.ops import sdp_blocked as sb
 
         B, N = self.args[0].shape
         pwl = sb._pwl_host_params(self.key)
-        plan = sb.sdp_plan(N, B, _ext.sm_count(0)) if planned else None
-        counter = torch.empty(4, dtype=torch.int32, device="cuda")
+        plan = sb.sdp_plan(N) if planned else None
 
         def run():
             out = [torch.empty((B, N), dtype=dt, device="cuda")
                    for dt in (torch.float32, torch.int32, torch.int32)]
             ptrs = [x.data_ptr() for x in self.args + out]
+            args = ptrs + [ctypes.addressof(pwl), B, N]
             if planned:
-                args = ptrs + [counter.data_ptr(), ctypes.addressof(pwl), B,
-                               N] + [plan[k] for k in PLAN_KEYS] + [3]
-            else:
-                args = ptrs + [ctypes.addressof(pwl), B, N]
+                args += [plan[k] for k in PLAN_KEYS]
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"K2: CUDA launch failed ({rc})")
@@ -227,17 +223,33 @@ class K2:
 
         return sb.chain_scores_blocked_plain(*self.args, self.key)
 
-    def parts(self) -> list:
-        from lra_tpu_torch.ops import sdp_blocked as sb
-
-        return [(name, lambda ph=ph: sb._chain_scores_blocked_cuda(
-            *self.args, self.key, 64, phases=ph))
-            for name, ph in (("no cross-block folds", 2),
-                             ("no in-block pass", 1))]
-
 
 KERNELS = {"k2": K2, "k4": K4}
 PLAN_KEYS = ("tier", "threads", "smem")     # K2's planned entry point
+
+
+def device_ms(run, n: int = BACK_TO_BACK) -> tuple:
+    """(device ms a call, kernels a call) of n calls of run under
+    torch.profiler: every kernel it launched, no memset or copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    tot, cnt = 0.0, 0
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA and \
+                "Memset" not in ev.key and "Memcpy" not in ev.key:
+            tot += dt
+            cnt += ev.count
+    return tot / 1e3 / n, cnt / n
 
 
 def exact_all(cs, name, got, ref) -> None:
@@ -268,8 +280,9 @@ def main() -> int:
         so = (os.path.join(_ext.BUILD_DIR, f"lib{spec.lib}.so") if tr == ROOT
               else nvcc_build(src, os.path.join(tr, f"_{argv[0]}_build"),
                               spec.lib))
+        planned = is_planned(spec, src)
         built.append(("this" if tr == ROOT else tr,
-                      spec.entry(so, is_planned(src)), is_planned(src)))
+                      spec.entry(so, planned), planned))
     cut = []        # (label, entry) of the phase-cut copies
     if "--phases" in sys.argv:
         for tr, _, planned in built[1:]:
@@ -294,11 +307,11 @@ def main() -> int:
         mine = [cs.cuda_ms(k.wrapper, 10), cs.cuda_ms(k.wrapper, 10)]
         last = [cs.cuda_ms(run, 10) for run in runs[::-1]][::-1]
         parts = [(n, cs.cuda_ms(f, 10)) for n, f in k.parts()] \
-            if built[0][2] else []
+            if hasattr(k, "parts") else []
         cs.log(f"{argv[0]} [{label}] {k.shape()}, all exact; this through "
-               f"its wrapper {mine[0]:.4f}, {mine[1]:.4f} ms ("
-               + ", ".join(f"{n} {t:.4f}" for n, t in parts)
-               + "); runners: "
+               f"its wrapper {mine[0]:.4f}, {mine[1]:.4f} ms"
+               + "".join(f" ({n} {t:.4f})" for n, t in parts)
+               + "; runners: "
                + "; ".join(f"{tr} {a:.4f}, {b:.4f} ms"
                            for tr, a, b in zip(names, first, last)))
         # back to back: the card's time per launch, the host's enqueue
@@ -308,6 +321,10 @@ def main() -> int:
         cs.log(f"{argv[0]} [{label}] back to back, ms per launch: "
                + "; ".join(f"{tr} {a:.4f}, {b:.4f}"
                            for tr, a, b in zip(names, *b2b)))
+        dev = [device_ms(run) for run in runs]
+        cs.log(f"{argv[0]} [{label}] device time under the profiler, ms a "
+               f"call: " + "; ".join(f"{tr} {t:.4f} ({k:g} kernels)"
+                                     for tr, (t, k) in zip(names, dev)))
         if cut:
             whole = [cs.cuda_ms(lambda: [run() for _ in range(BACK_TO_BACK)],
                                 3) / BACK_TO_BACK for run in runs[1:]]
