@@ -5,6 +5,7 @@
     python3 chip_smoke.py --save-k4 PATH   # also save each path's largest
                                            # K4 input (tools/kernel_compare.py)
     python3 chip_smoke.py --save-k2 PATH   # the same for K2
+    python3 chip_smoke.py --save-k6 PATH   # every K6 launch of each path
 
 Needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); exits non-zero without a result line otherwise, and on any
@@ -19,8 +20,11 @@ failure.  Phases:
    problems and tie-dense problems; K4 and K5 at every K tier, off-tier
    K up to 1023,
    S 16 to 2048 and the edge problems of sim.refine_problems, with each
-   of their launch plans; K6 at (K, D) buckets up to 2052 lanes in both
-   closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
+   of their launch plans; K6 with every plan of og.plan_variants at
+   (K, D) buckets up to 2052 lanes, the tier edges K = 16, 32, 64, D 16
+   to 4096 (past the shared memory of the planes), B across the
+   warps-a-problem edge, buckets of pad rows and tie-dense problems, in
+   both closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
    at N = 1280..40960 with W = 64..16384, B = 1..3, on an instance where
    the far term wins and on tie-dense instances), K7's cluster size and
    how many such clusters fit on the card;
@@ -52,7 +56,10 @@ failure.  Phases:
    input of each path, exact and timed with each launch plan, whole and
    with the walk skipped, and every K4 launch's (B, S, K) per path; K2's
    (B, N, need_full) per path, and K2 on each path's largest input,
-   exact with each launch plan, timed per call and back to back; K7 on
+   exact with each launch plan, timed per call and back to back; every K6
+   launch's (B, K, D, real problems, longest shorter side) per path, and
+   K6 on each path's largest input and the one with the most rows a
+   problem, exact with every plan, timed per call and back to back; K7 on
    the largest
    input of CONTIG (b) and of (c), exact and timed with clusters of 8
    and 16 CTAs;
@@ -202,40 +209,18 @@ def banded_inputs(rng, B, S, K, dev):
     return [torch.from_numpy(x).to(dev) for x in (q, t, qlen, tlen, kb)]
 
 
-def one_gap_inputs(rng, B, K, D, query_longer, gaps, dev):
-    """B one-long-gap problems of a (K, D) bucket plus the pad row
-    gap_align adds (qlen 1, tlen 4, kband 1): a short side of D/2..D-1
-    bases with SNPs and a one-base indel, the long side its two flanks
-    around a random gap of max(2k+1, gaps[0])..gaps[1] bases; kband k in
-    1..K-1."""
+def one_gap_inputs(rng, B, K, D, query_longer, gaps, dev, kind="random",
+                   pads=1):
+    """K6's seven tensors for B one-long-gap problems of a (K, D) bucket
+    and `pads` of gap_align's pad rows (qlen 1, tlen 4, kband 1):
+    lra_tpu_torch.sim.one_gap_problems, random or tie-dense (kind)."""
     import torch
 
     from lra_tpu_torch.ops.one_gap import pack_one_gap_bucket
+    from lra_tpu_torch.sim import one_gap_problems
 
-    qs, ts, kbs = [], [], []
-    for _ in range(B):
-        mn = int(rng.integers(max(1, D // 2), D))
-        k = int(min(rng.integers(1, K), mn))
-        lo = max(2 * k + 1, gaps[0])
-        gap = int(rng.integers(lo, max(lo + 1, gaps[1])))
-        flank = rng.integers(0, 4, mn).astype(np.int8)
-        longer = np.concatenate([flank[:mn // 2],
-                                 rng.integers(0, 4, gap).astype(np.int8),
-                                 flank[mn // 2:]])
-        short = flank.copy()
-        mut = rng.random(mn) < 0.05
-        short[mut] = rng.integers(0, 4, int(mut.sum()))
-        p = int(rng.integers(0, mn))
-        short = np.delete(short, p) if rng.random() < 0.5 and mn > 2 \
-            else np.insert(short, p, short[p])
-        short = short[:D - 1]
-        q, t = (longer, short) if query_longer else (short, longer)
-        qs.append(q)
-        ts.append(t)
-        kbs.append(min(k, len(short)))
-    qs.append(np.zeros(1, np.int8))
-    ts.append(np.zeros(4, np.int8))
-    kbs.append(1)
+    qs, ts, kbs = one_gap_problems(rng, B, K, D, query_longer, gaps, kind,
+                                   pads)
     packed = pack_one_gap_bucket(qs, ts, K, D)
     return [torch.from_numpy(a).to(dev)
             for a in list(packed) + [np.asarray(kbs, np.int32)]]
@@ -317,27 +302,50 @@ def dp_bound(name, K, q, t, tlen, out) -> tuple:
     return bound(nbytes, ops)
 
 
-def one_gap_bound(args, K, D, L, ops_out) -> tuple:
-    """K6 on this data: the prefix rows 1..min(D+K-1, tBoundary-1) of
-    2K+1 cells and the suffix rows up to tlen of 2K+4 cells that hold a
-    valid cell (the kernel computes no other row), each cell's int8
-    arrow written once, one arrow read per traceback op; inputs read and
-    outputs written once."""
-    qlen = args[4].long()
-    tlen = args[5].long()
-    kb = args[6].long()
+def one_gap_rows(args, K, D) -> tuple:
+    """Per problem of a K6 call: the prefix rows 1..min(D+K-1,
+    tBoundary-1) and the suffix rows up to tlen (those that hold a valid
+    cell; the kernel computes no other row)."""
+    qlen, tlen, kb = (a.long() for a in args[4:7])
     diag = qlen.minimum(tlen)
-    tb1 = (diag + kb - 1).minimum(tlen)
-    prow = tb1.clamp(0, D + K - 1)
+    prow = (diag + kb - 1).minimum(tlen).clamp(0, D + K - 1)
     tlow = (tlen - diag - kb - 2).clamp(min=0)
-    srow = (tlen - tlow).clamp(0, D + K + 2)
+    return prow, (tlen - tlow).clamp(0, D + K + 2)
+
+
+def one_gap_real(args):
+    """The problems of a K6 call that hold a job: all but gap_align's pad
+    rows (qlen 1, tlen 4, kband 1)."""
+    return ~((args[4] == 1) & (args[5] == 4) & (args[6] == 1))
+
+
+def one_gap_bound(args, K, D, L, ops_out) -> tuple:
+    """K6 on this data: the rows of one_gap_rows, 2K+1 prefix and 2K+4
+    suffix cells each, each cell's int8 arrow written once, one arrow
+    read per traceback op; inputs read and outputs written once."""
+    prow, srow = one_gap_rows(args, K, D)
     cells = int((prow * (2 * K + 1) + srow * (2 * K + 4)).sum())
     steps = int((ops_out >= 0).sum())
     per_cell = OPS_PER_CELL["one_gap_traced"] + \
         2 * math.ceil(math.log2(2 * K + 4))
     nbytes = sum(4 * a.numel() for a in args) + ops_out.numel() + \
-        8 * qlen.numel() + cells + steps
+        8 * args[4].numel() + cells + steps
     return bound(nbytes, cells * per_cell)
+
+
+def k6_picks(calls) -> dict:
+    """A path's two K6 inputs: the largest by work, B x (D + K) x K (the
+    main-path recorder's measure), and the one with the most valid rows
+    in one problem (one warp's serial chain)."""
+    def rows(a):
+        p, s = one_gap_rows(a, a[7], a[8])
+        return int((p + s).max())
+    work = max(calls, key=lambda a: a[0].numel() * a[7])
+    longest = max(calls, key=rows)
+    out = {"largest": work}
+    if longest is not work:
+        out["longest rows"] = longest
+    return out
 
 
 def sdp_bound(args) -> tuple:
@@ -392,6 +400,7 @@ def kernel_phase(dev) -> None:
     import torch
 
     from lra_tpu_torch import preset
+    from lra_tpu_torch.ops import _ext
     from lra_tpu_torch.ops import affine_kernel as ak
     from lra_tpu_torch.ops import affine_pallas as ap
     from lra_tpu_torch.ops import one_gap as og
@@ -556,30 +565,62 @@ def kernel_phase(dev) -> None:
             *a[:4], K, M, MM, IND, a[4]), 1)
         log(f"kernel banded_pallas_rowsync B=64 K=30 S={S}: exact, blocks "
             f"== K4's; {ms:.3f} ms (plain {pms:.1f} ms)")
-    # K6: (K, D) buckets from the narrowest to 2052 lanes, both regimes
-    for B, K, D, gaps in ((64, 16, 64, (200, 400)), (16, 64, 1024,
-                                                      (1000, 50000)),
-                          (4, 512, 2048, (2000, 50000)),
-                          (4, 1024, 1024, (2100, 5000))):
+    # K6 in both closure regimes with every launch plan (og.plan_variants):
+    # PR 2's (K, D) buckets up to 2052 lanes; the tier edges (K = 16 and
+    # 32 the warp tier, 64 the CTA tier); D from 16 to 4096 (the planes
+    # leave shared memory at K=32 D=2048 and K=16 D=4096); B across the
+    # warps-a-problem edge (edge rows: a pair of warps a problem; one
+    # more: one warp, 4 problems a block, the last block part-full);
+    # buckets of gap_align's pad rows; tie-dense problems
+    edge = og._OG_FULL_WARPS * _ext.sm_count(0) // 2
+    for B, K, D, gaps, kind, pads in (
+            (64, 16, 64, (200, 400), "random", 1),
+            (16, 64, 1024, (1000, 50000), "random", 1),
+            (4, 512, 2048, (2000, 50000), "random", 1),
+            (4, 1024, 1024, (2100, 5000), "random", 1),
+            (13, 16, 16, (0, 400), "random", 1),
+            (13, 32, 16, (0, 400), "random", 1),
+            (13, 64, 16, (0, 400), "random", 1),
+            (13, 32, 64, (0, 400), "random", 1),
+            (8, 32, 256, (200, 5000), "random", 1),
+            (8, 32, 512, (200, 5000), "random", 1),
+            (4, 32, 1024, (200, 5000), "random", 1),
+            (4, 32, 2048, (200, 5000), "random", 1),
+            (4, 16, 2048, (200, 5000), "random", 1),
+            (2, 16, 4096, (200, 5000), "random", 1),
+            (edge - 1, 16, 16, (0, 400), "random", 1),
+            (edge, 16, 16, (0, 400), "random", 1),
+            (1, 16, 16, (0, 400), "random", 7),
+            (0, 32, 64, (0, 400), "random", 8),
+            (13, 16, 64, (0, 400), "tie", 1),
+            (13, 32, 256, (200, 2000), "tie", 1)):
         for query_longer in (True, False):
-            a = one_gap_inputs(rng, B, K, D, query_longer, gaps, dev)
+            a = one_gap_inputs(rng, B, K, D, query_longer, gaps, dev, kind,
+                               pads)
+            Bt = B + pads
             L = 2 * (D + K) + 8
-            got = og.one_gap_traced(*a, K, D, M, MM, IND, L)
-            torch.cuda.synchronize()
             ref, pms = timed(lambda: og.one_gap_traced_plain(
                 *a, K, D, M, MM, IND, L))
-            for nm, x, y in zip(("ops", "jump", "score"), got, ref):
-                exact(f"one_gap_traced K={K} D={D} {nm}", x, y)
             gap_op = og.GAPLEFT if query_longer else og.GAPDOWN
             if int((ref[0][:B] == gap_op).sum()) != B:
                 raise AssertionError(f"one_gap_traced K={K} D={D}: not "
                                      "one gap op per problem")
+            names = []
+            for name, plan in og.plan_variants(K, D, Bt):
+                got = og._one_gap_traced_cuda(*a, K, D, M, MM, IND, L,
+                                              plan=plan)
+                torch.cuda.synchronize()
+                for nm, x, y in zip(("ops", "jump", "score"), got, ref):
+                    exact(f"one_gap_traced B={Bt} K={K} D={D} {kind} "
+                          f"{name} {nm}", x, y)
+                names.append(name)
             ms = cuda_ms(lambda: og.one_gap_traced(*a, K, D, M, MM, IND, L),
                          5)
-            log(f"kernel one_gap_traced B={B + 1} K={K} D={D} "
+            log(f"kernel one_gap_traced B={Bt} K={K} D={D} {kind} "
                 f"{'GAPLEFT' if query_longer else 'GAPDOWN'} gaps "
-                f"{gaps[0]}-{gaps[1]}: exact; {ms:.3f} ms (plain "
-                f"{pms:.1f} ms)")
+                f"{gaps[0]}-{gaps[1]}: exact with {', '.join(names)} "
+                f"({og.plan_str(og.one_gap_plan(K, D, Bt))}); {ms:.3f} ms "
+                f"(plain {pms:.1f} ms)")
 
 
 class Recorder:
@@ -605,6 +646,9 @@ class Recorder:
         self.glob_calls: dict = {}  # path label: (B, S, K) of each K4 call
         self.blocked: dict = {}     # path label: K2's largest input there
         self.blocked_calls: dict = {}   # path label: (B, N, need_full)
+        self.og_calls: dict = {}    # path label: (B, K, D, real problems,
+        #                             their longest shorter side)
+        self.og_inputs: dict = {}   # path label: K6's inputs of each call
         self.masked = False     # inside the driver's masked round
         self.path = None
         self.saved = []
@@ -660,6 +704,13 @@ class Recorder:
                 keep.append((self.blocked, self.path))
                 self.blocked_calls.setdefault(self.path, []).append(
                     (args[0].shape[0], args[0].shape[1], not self.masked))
+            if name == "one_gap_traced":
+                real = one_gap_real(args)
+                self.og_calls.setdefault(self.path, []).append(
+                    (args[0].shape[0], args[7], args[8], int(real.sum()),
+                     int((args[4].minimum(args[5]) * real).max())))
+                self.og_inputs.setdefault(self.path, []).append(
+                    [x.clone() if hasattr(x, "clone") else x for x in args])
             for store, k in keep:
                 if work > store.get(k, (-1,))[0]:
                     store[k] = (work, [x.clone() if hasattr(x, "clone")
@@ -1118,6 +1169,51 @@ def main_path_kernels(rec, launches) -> list:
     return rows
 
 
+def back_to_back(fn) -> float:
+    """The card's time per launch of fn: BACK_TO_BACK calls between two
+    events (the host's enqueue hidden behind the launches before it)."""
+    return cuda_ms(lambda: [fn() for _ in range(BACK_TO_BACK)], 3) / \
+        BACK_TO_BACK
+
+
+def one_gap_paths_phase(rec) -> None:
+    """K6 against its twin on each path's two recorded inputs (k6_picks),
+    exact with every plan of og.plan_variants (the first the wrapper's
+    choice), each timed per call and back to back, in two rounds of
+    turns."""
+    import torch
+
+    from lra_tpu_torch.ops import one_gap as og
+
+    if not rec.og_inputs:
+        raise AssertionError("no main-path call of one_gap_traced recorded")
+    for label, calls in rec.og_inputs.items():
+        for pick, args in k6_picks(calls).items():
+            K, D, B = args[7], args[8], args[0].shape[0]
+            ref, pms = timed(lambda: og.one_gap_traced_plain(*args))
+            plans = og.plan_variants(K, D, B)
+            res = {name: [] for name, _ in plans}
+            for _ in range(2):
+                for name, plan in plans:
+                    fn = lambda: og._one_gap_traced_cuda(*args, plan=plan)
+                    got = fn()
+                    torch.cuda.synchronize()
+                    for nm, x, y in zip(("ops", "jump", "score"), got, ref):
+                        exact(f"one_gap_traced [{label}] {pick} {name} {nm}",
+                              x, y)
+                    res[name].append((cuda_ms(fn, 10), back_to_back(fn)))
+            prow, srow = one_gap_rows(args, K, D)
+            real = one_gap_real(args)
+            log(f"K6 [{label}] {pick} input B={B} K={K} D={D} "
+                f"({int(real.sum())} real problems, at most "
+                f"{int((prow + srow).max())} rows a problem): exact with "
+                f"every plan; plain twin {pms:.1f} ms")
+            for name, plan in plans:
+                log(f"  K6 [{label}] {pick} {name} ({og.plan_str(plan)}): "
+                    + "; ".join(f"per call {c:.4f} ms, back to back {w:.4f}"
+                                for c, w in res[name]))
+
+
 def blocked_paths_phase(rec) -> None:
     """K2 against its twin on the largest input each path gave it, exact
     with every launch plan (sb.plan_variants); timed through the wrapper
@@ -1131,10 +1227,6 @@ def blocked_paths_phase(rec) -> None:
     if not rec.blocked:
         raise AssertionError("no main-path call of chain_scores_blocked "
                              "recorded")
-
-    def b2b(fn):
-        return cuda_ms(lambda: [fn() for _ in range(BACK_TO_BACK)], 3) / \
-            BACK_TO_BACK
     for label, (_, args, kw) in rec.blocked.items():
         ref, pms = timed(lambda: sb.chain_scores_blocked_plain(*args, **kw))
         B, N = args[0].shape
@@ -1145,7 +1237,7 @@ def blocked_paths_phase(rec) -> None:
                 exact(f"chain_scores_blocked [{label}] {sb.plan_str(plan)} "
                       f"{nm}", x, y)
         fn = lambda: sb.chain_scores_blocked(*args, **kw)
-        res = [(cuda_ms(fn, 10), b2b(fn)) for _ in range(2)]
+        res = [(cuda_ms(fn, 10), back_to_back(fn)) for _ in range(2)]
         bnd, by = sdp_bound(args)
         log(f"K2 [{label}] main-path input B={B} N={N} "
             f"({int(args[7].sum())} valid rows; "
@@ -1349,7 +1441,8 @@ def contig_parity(work) -> None:
 
 HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
         "chain_mask_kernel", "banded_global_kernel",
-        "banded_refine_kernel", "rowsync_kernel", "one_gap_kernel",
+        "banded_refine_kernel", "rowsync_kernel", "one_gap_warp_kernel",
+        "one_gap_kernel",
         "sdp_windowed_kernel")
 
 
@@ -1448,8 +1541,15 @@ def main() -> int:
                         ak._global_cuda, ak.global_plan)
     launch_shapes("K2", rec.blocked_calls, "(B, N, need_full)")
     blocked_paths_phase(rec)
+    launch_shapes("K6", rec.og_calls,
+                  "(B, K, D, real problems, longest shorter side)")
+    one_gap_paths_phase(rec)
+    k6_store = {f"{label} #{i}": (0, args, {})
+                for label, calls in rec.og_inputs.items()
+                for i, args in enumerate(calls)}
     for flag, tag, store in (("--save-k4", "K4", rec.glob),
-                             ("--save-k2", "K2", rec.blocked)):
+                             ("--save-k2", "K2", rec.blocked),
+                             ("--save-k6", "K6", k6_store)):
         if flag in sys.argv:
             save_inputs(tag, store, sys.argv[sys.argv.index(flag) + 1])
     windowed_paths_phase(rec)

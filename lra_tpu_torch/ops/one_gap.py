@@ -7,8 +7,9 @@ matrix from (0,0), a k-banded suffix matrix anchored at (qLen,tLen), and
 ONE free arbitrarily-long gap joining them (a column-max closure when
 the query is longer, a row-max closure when the target is longer).
 
-``one_gap_traced`` launches the CUDA kernel (csrc/one_gap.cu) for CUDA
-tensors and runs ``one_gap_traced_plain`` for CPU tensors.  Both are
+``one_gap_traced`` launches the CUDA kernel (csrc/one_gap.cu, with the
+launch plan of ``one_gap_plan``) for CUDA tensors and runs
+``one_gap_traced_plain`` for CPU tensors.  Both are
 bit-identical to lra_tpu's jitted one_gap_traced and through it to the
 host oracle ``align.affine.affine_one_gap_align`` (same integer scores,
 same tie order LEFT > DOWN > DIAG > GAPLEFT > GAPDOWN, same
@@ -32,6 +33,7 @@ never on the gap length: a 50kb SV gap costs the same as a 200bp one.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -387,15 +389,141 @@ def one_gap_traced_plain(q_head, t_head, q_tail, t_tail, qlen, tlen, kband,
     return ops, jump, score
 
 
-_ONE_GAP_ARGS = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+_OG_PLAN_KEYS = ("tier", "CPT", "WPP", "PPB", "threads", "smem",
+                 "tables_smem", "planes_smem", "R", "scratch")
+_ONE_GAP_ARGS = [ctypes.c_void_p] * 11 + \
+    [ctypes.c_int] * (7 + len(_OG_PLAN_KEYS))
+_OG_R = 64          # plane rows a staged chunk of the walk holds
+_OG_RING = 8        # suffix rows in the ring to the arrows warp
+_OG_PPB = 4         # problems a block when a bucket fills the card
+_OG_FULL_WARPS = 16     # warps a SM past which a bucket fills the card
+SMEM_MAX = _ext.SMEM_MAX
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _og_group_bytes(K: int, D: int, L: int, tables_smem: bool,
+                    planes_smem: bool, R: int) -> tuple:
+    """(shared bytes, device table bytes, device plane bytes) of one
+    problem in the warp tier: csrc/one_gap.cu's og_layout.  Shared: the
+    progress words, the four windows as bytes, the ops row, the ring of
+    _OG_RING suffix rows (32 lanes of 2 or 3 f32 cells), then the gap
+    tables (lmax/lidx [D+K], up/upi [D+3K+4], 4 bytes each) and the two
+    arrow planes ([D+K] and [D+K+3] rows of 2K+4 bytes) where they fit,
+    else two staging chunks of R plane rows for the walk."""
+    HP, HS, TP1, TS1 = D + K, D + K + 4, D + K, D + K + 3
+    UP, PW = D + 3 * K + 4, 2 * K + 4
+    group = 16 + 2 * _a16(HP) + 2 * _a16(HS) + _a16(L) + \
+        _OG_RING * 32 * (2 if K == 16 else 3) * 4
+    tables = 2 * _a16(4 * TP1) + 2 * _a16(4 * UP)
+    planes = _a16(TP1 * PW) + _a16(TS1 * PW)
+    group += tables if tables_smem else 0
+    group += planes if planes_smem else 2 * _a16(R * PW + 32)
+    return (group, 0 if tables_smem else tables,
+            0 if planes_smem else planes)
+
+
+def _og_cta_scratch(B: int, K: int, D: int) -> int:
+    """Device bytes of the CTA tier's planes and tables (csrc/one_gap.cu's
+    cta_scratch)."""
+    TP1, TS1, UP = D + K, D + K + 3, D + 3 * K + 4
+    return sum(_a16(n) for n in (B * TP1 * (2 * K + 1),
+                                 B * TS1 * (2 * K + 4), 4 * B * TP1,
+                                 4 * B * TP1, 4 * B * UP, 4 * B * UP))
+
+
+def _warp_plan(K, D, B, L, wpp, ppb, tables, planes) -> dict:
+    group, tb, pb = _og_group_bytes(K, D, L, tables, planes, _OG_R)
+    return {"tier": 0, "CPT": 2 if K == 16 else 3, "WPP": wpp, "PPB": ppb,
+            "threads": 32 * wpp * ppb, "smem": ppb * group,
+            "tables_smem": int(tables), "planes_smem": int(planes),
+            "R": _OG_R, "scratch": B * (tb + pb)}
+
+
+def one_gap_plan(K: int, D: int, B: int = 1, sms: int = 132,
+                 L: int | None = None) -> dict:
+    """Launch plan of csrc/one_gap.cu for a (K, D) bucket of B problems
+    (ops rows of L bytes, 2(D+K)+8 by default) on a card of `sms` SMs.
+
+    K = 16 and 32 (every launch on the pipeline's paths) take the warp
+    tier (tier 0): a problem's band rows in one warp, CPT = 2 or 3 cells
+    a lane.  A bucket that leaves the card idle (3B warps at most
+    _OG_FULL_WARPS a SM) runs WPP = 3 warps a problem, one problem a
+    block: the prefix, the suffix DP beside it, and the suffix's arrows;
+    a fuller one one warp a problem and PPB = 4 problems a block (2 or 1
+    where 4 do not fit).  The gap tables, then the arrow planes, stay in
+    shared memory while one problem's bytes fit in SMEM_MAX; what does not
+    fit goes to device scratch (`scratch` bytes), and a walk over device
+    planes stages chunks of R rows.  Other K take the CTA tier (tier 1):
+    one CTA a problem, CPT = 1, 2 or 4 band cells a thread, planes and
+    tables in device scratch.  Raises where no plan fits."""
+    L = 2 * (D + K) + 8 if L is None else L
+    if K in (16, 32):
+        full = 3 * B > _OG_FULL_WARPS * sms
+        for tables, planes in ((True, True), (True, False), (False, False)):
+            group = _og_group_bytes(K, D, L, tables, planes, _OG_R)[0]
+            ppb = next((n for n in ((_OG_PPB, 2, 1) if full else (1,))
+                        if n * group <= SMEM_MAX), 0)
+            if ppb:
+                return _warp_plan(K, D, B, L, 1 if full else 3, ppb, tables,
+                                  planes)
+        raise ValueError(f"one_gap_traced kernel: no plan fits K={K} D={D} "
+                         f"in {SMEM_MAX} bytes of shared memory")
+    LS = 2 * K + 4
+    if LS > 4096:
+        raise ValueError(f"one_gap_traced kernel: needs 2K+4 <= 4096 "
+                         f"(got K={K})")
+    cpt = 1 if LS <= 1024 else (2 if LS <= 2048 else 4)
+    threads = ((LS + cpt - 1) // cpt + 31) // 32 * 32
+    return {"tier": 1, "CPT": cpt, "WPP": threads // 32, "PPB": 1,
+            "threads": threads, "smem": (3 * LS + 1) * 4, "tables_smem": 0,
+            "planes_smem": 0, "R": 0, "scratch": _og_cta_scratch(B, K, D)}
+
+
+def plan_variants(K: int, D: int, B: int) -> list:
+    """The plans a (K, D) bucket of B problems can run with, by name:
+    one_gap_plan's, and in the warp tier the other warps-a-problem shape
+    (one warp with 4 problems a block, or three) and, with three warps,
+    the planes, then the tables too, in device memory, where one
+    problem's shared bytes fit."""
+    chosen = one_gap_plan(K, D, B)
+    out = [("plan", chosen)]
+    if chosen["tier"] != 0:
+        return out
+    L = 2 * (D + K) + 8
+    t, pl = chosen["tables_smem"], chosen["planes_smem"]
+    for name, plan in (
+            ("one warp a problem", _warp_plan(K, D, B, L, 1, 1, t, pl)),
+            ("three warps a problem", _warp_plan(K, D, B, L, 3, 1, t, pl)),
+            ("planes in device memory",
+             _warp_plan(K, D, B, L, 3, 1, t, False)),
+            ("tables and planes in device memory",
+             _warp_plan(K, D, B, L, 3, 1, False, False))):
+        if plan["smem"] <= SMEM_MAX and all(plan != q for _, q in out):
+            out.append((name, plan))
+    return out
+
+
+def plan_str(plan) -> str:
+    return ("tier {tier} CPT {CPT} WPP {WPP} PPB {PPB} smem {smem} tables "
+            "{tables_smem} planes {planes_smem} scratch {scratch}"
+            .format(**plan))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(K: int, D: int, B: int, sms: int, L: int) -> tuple:
+    plan = one_gap_plan(K, D, B, sms, L)
+    return tuple(plan[k] for k in _OG_PLAN_KEYS)
 
 
 def _one_gap_traced_cuda(q_head, t_head, q_tail, t_tail, qlen, tlen, kband,
-                         K, D, m, mm, indel, L):
+                         K, D, m, mm, indel, L, plan=None):
+    """K6 on the card with one_gap_plan's plan (or the one given): one
+    allocation for the three outputs, one for the scratch the plan puts
+    in device memory."""
     B = q_head.shape[0]
-    if 2 * K + 4 > 4096:
-        raise ValueError(f"one_gap_traced kernel: needs 2K+4 <= 4096 "
-                         f"(got K={K})")
     HP, HS = HEAD(K, D), TAIL(K, D)
     for name, t, w in (("q_head", q_head, HP), ("t_head", t_head, HP),
                        ("q_tail", q_tail, HS), ("t_tail", t_tail, HS)):
@@ -403,25 +531,23 @@ def _one_gap_traced_cuda(q_head, t_head, q_tail, t_tail, qlen, tlen, kband,
     for name, t in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
         _ext.check(name, t, torch.int32, (B,))
     dev = q_head.device
-    ops = torch.empty((B, L), dtype=torch.int8, device=dev)
-    jump = torch.empty(B, dtype=torch.int32, device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
+    nb = _a16(B * L)
+    out = torch.empty(nb + 8 * B, dtype=torch.uint8, device=dev)
+    ops = out[:B * L].view(torch.int8).view(B, L)
+    jump = out[nb:nb + 4 * B].view(torch.int32)
+    score = out[nb + 4 * B:].view(torch.float32)
     if B == 0:
         return ops, jump, score
-    # scratch: arrow planes, lowerMax/idx per column, upperMax/idx per row
-    TP1, TS1, UP = D + K, D + K + 3, D + 3 * K + 4
-    parr = torch.empty((B, TP1, 2 * K + 1), dtype=torch.int8, device=dev)
-    sarr = torch.empty((B, TS1, 2 * K + 4), dtype=torch.int8, device=dev)
-    lmax = torch.empty((B, TP1), dtype=torch.float32, device=dev)
-    lidx = torch.empty((B, TP1), dtype=torch.int32, device=dev)
-    up = torch.empty((B, UP), dtype=torch.float32, device=dev)
-    upi = torch.empty((B, UP), dtype=torch.int32, device=dev)
+    args = (_plan_args(K, D, B, _ext.sm_count(dev.index or 0), L)
+            if plan is None else tuple(plan[k] for k in _OG_PLAN_KEYS))
+    scratch = torch.empty(args[-1], dtype=torch.uint8, device=dev) \
+        if args[-1] else None
     p = _ext.ptr
     _ext.launch("one_gap_traced", "one_gap", "lra_one_gap_traced",
                 _ONE_GAP_ARGS, p(q_head), p(t_head), p(q_tail), p(t_tail),
-                p(qlen), p(tlen), p(kband), p(parr), p(sarr), p(lmax),
-                p(lidx), p(up), p(upi), p(ops), p(jump), p(score), B, K, D,
-                int(m), int(mm), int(indel), L)
+                p(qlen), p(tlen), p(kband),
+                0 if scratch is None else p(scratch), p(ops), p(jump),
+                p(score), B, K, D, int(m), int(mm), int(indel), L, *args)
     return ops, jump, score
 
 

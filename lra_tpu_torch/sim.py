@@ -203,3 +203,59 @@ def refine_problems(rng, B: int, S: int, K: int) -> tuple:
     kb = np.maximum(kb, np.abs(qlen - tlen))
     return (q, t, qlen.astype(np.int32), tlen.astype(np.int32),
             kb.astype(np.int32))
+
+
+def _repeat_codes(rng, n: int) -> np.ndarray:
+    """n codes of homopolymer runs (2-8 bases) and short tandem repeats
+    (units of 2-3 bases of one alphabet pair, 2-5 copies)."""
+    parts, have = [], 0
+    while have < n:
+        if rng.random() < 0.5:
+            seg = np.full(int(rng.integers(2, 9)), int(rng.integers(0, 4)))
+        else:
+            unit = rng.integers(0, 2, int(rng.integers(2, 4))) + \
+                2 * int(rng.integers(0, 2))
+            seg = np.tile(unit, int(rng.integers(2, 6)))
+        parts.append(seg)
+        have += len(seg)
+    return np.concatenate(parts)[:n].astype(np.int8)
+
+
+def one_gap_problems(rng, B: int, K: int, D: int, query_longer: bool,
+                     gaps: tuple, kind: str = "random",
+                     pads: int = 1) -> tuple:
+    """B one-long-gap problems of a (K, D) bucket for K6
+    (ops/one_gap.py) and `pads` of gap_align's pad rows (qlen 1, tlen 4,
+    kband 1): a short side of D/2..D-1 bases with 5 % substitutions and
+    a one-base indel, the long side its two flanks around a gap of
+    max(2k+1, gaps[0])..gaps[1] bases; kband k in 1..K-1.  kind "tie":
+    the flanks and the gap are homopolymer runs and short tandem repeats
+    (_repeat_codes), so that many arrows and both gap maxima tie.
+    Returns the lists (qs, ts, kbands)."""
+    qs, ts, kbs = [], [], []
+    codes = (lambda n: rng.integers(0, 4, n).astype(np.int8)) \
+        if kind == "random" else (lambda n: _repeat_codes(rng, n))
+    for _ in range(B):
+        mn = int(rng.integers(max(1, D // 2), D))
+        k = int(min(rng.integers(1, K), mn))
+        lo = max(2 * k + 1, gaps[0])
+        gap = int(rng.integers(lo, max(lo + 1, gaps[1])))
+        flank = codes(mn)
+        longer = np.concatenate([flank[:mn // 2], codes(gap),
+                                 flank[mn // 2:]])
+        short = flank.copy()
+        mut = rng.random(mn) < 0.05
+        short[mut] = rng.integers(0, 4, int(mut.sum()))
+        p = int(rng.integers(0, mn))
+        short = np.delete(short, p) if rng.random() < 0.5 and mn > 2 \
+            else np.insert(short, p, short[p])
+        short = short[:D - 1]
+        q, t = (longer, short) if query_longer else (short, longer)
+        qs.append(q)
+        ts.append(t)
+        kbs.append(min(k, len(short)))
+    for _ in range(pads):
+        qs.append(np.zeros(1, np.int8))
+        ts.append(np.zeros(4, np.int8))
+        kbs.append(1)
+    return qs, ts, kbs

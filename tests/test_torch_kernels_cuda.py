@@ -7,6 +7,10 @@ runs on a machine with only the port's dependencies:
 
 Without a CUDA device every test skips."""
 
+import ctypes
+import os
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +23,10 @@ from lra_tpu_torch.ops import one_gap as og
 from lra_tpu_torch.ops import sdp_blocked as sb
 from lra_tpu_torch.ops import sdp_windowed as sw
 from lra_tpu_torch.ops.gapcost import from_options
-from lra_tpu_torch.sim import (contig_chain_arrays, refine_problems,
-                               sdp_bucket, tie_dense_chain_arrays)
+from lra_tpu_torch.ops import _ext
+from lra_tpu_torch.sim import (contig_chain_arrays, one_gap_problems,
+                               refine_problems, sdp_bucket,
+                               tie_dense_chain_arrays)
 
 torch.set_num_threads(2)
 M, MM, IND = 4, -3, -4
@@ -266,6 +272,153 @@ def test_one_gap_kernel_matches_plain(cuda_device, B, K, D, query_longer,
     assert torch.equal(got[2].view(torch.int32), ref[2].view(torch.int32))
     gap_op = og.GAPLEFT if query_longer else og.GAPDOWN
     assert int((ref[0][:B] == gap_op).sum()) == B
+
+
+def one_gap_bucket(seed, B, K, D, query_longer, kind, pads, gaps, dev):
+    qs, ts, kbs = one_gap_problems(np.random.default_rng(seed), B, K, D,
+                                   query_longer, gaps, kind, pads)
+    packed = og.pack_one_gap_bucket(qs, ts, K, D)
+    return [torch.from_numpy(a).to(dev)
+            for a in list(packed) + [np.asarray(kbs, np.int32)]]
+
+
+def assert_one_gap_equal(got, ref, what):
+    assert torch.equal(got[0], ref[0]), what
+    assert torch.equal(got[1], ref[1]), what
+    assert torch.equal(got[2].view(torch.int32), ref[2].view(torch.int32)), \
+        what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,D,query_longer,kind,pads,gaps", [
+    (13, 16, 16, True, "random", 1, (0, 400)),
+    (13, 16, 16, False, "random", 1, (0, 400)),
+    (13, 32, 64, True, "random", 1, (0, 400)),
+    (13, 32, 64, False, "random", 1, (0, 400)),
+    (13, 64, 64, True, "random", 1, (0, 400)),
+    (13, 64, 64, False, "random", 1, (0, 400)),
+    (4, 16, 1024, True, "random", 1, (200, 5000)),
+    (4, 16, 1024, False, "random", 1, (200, 5000)),
+    (4, 32, 512, True, "random", 1, (200, 5000)),
+    (4, 32, 512, False, "random", 1, (200, 5000)),
+    (2, 32, 2048, True, "random", 1, (200, 5000)),
+    (2, 32, 2048, False, "random", 1, (200, 5000)),
+    (1200, 16, 16, True, "random", 1, (0, 400)),
+    (1200, 16, 16, False, "random", 1, (0, 400)),
+    (1, 16, 16, False, "random", 7, (0, 400)),
+    (0, 32, 32, True, "random", 8, (0, 400)),
+    (13, 16, 64, True, "tie", 1, (0, 400)),
+    (13, 16, 64, False, "tie", 1, (0, 400)),
+    (8, 32, 256, True, "tie", 1, (200, 2000)),
+    (8, 32, 256, False, "tie", 1, (200, 2000))])
+def test_one_gap_kernel_plans_match_plain(cuda_device, B, K, D, query_longer,
+                                          kind, pads, gaps):
+    """K6 with every plan of og.plan_variants and the wrapper's own: the
+    warp tier (K = 16, 32) and the CTA tier (K = 64); D >> K in both
+    regimes (the suffix warp beside the prefix: query longer, and target
+    longer with its lag of ~K rows); planes in device memory (K=32
+    D=2048); a bucket past the warps-a-problem edge (one warp a problem,
+    4 a block, the last block part-full); buckets of gap_align's pad rows
+    (qlen 1, tlen 4, kband 1); tie-dense problems (homopolymer runs and
+    tandem repeats on both sides of and in the gap)."""
+    args = one_gap_bucket(K + D + B + query_longer, B, K, D, query_longer,
+                          kind, pads, gaps, cuda_device)
+    L = 2 * (D + K) + 8
+    ref = og.one_gap_traced_plain(*args, K, D, M, MM, IND, L)
+    gap_op = og.GAPLEFT if query_longer else og.GAPDOWN
+    assert int((ref[0][:B] == gap_op).sum()) == B
+    assert_one_gap_equal(og.one_gap_traced(*args, K, D, M, MM, IND, L), ref,
+                         "the wrapper's plan")
+    for name, plan in og.plan_variants(K, D, B + pads):
+        got = og._one_gap_traced_cuda(*args, K, D, M, MM, IND, L, plan=plan)
+        torch.cuda.synchronize()
+        assert_one_gap_equal(got, ref, name)
+
+
+def edge_landing_bucket(rng, B, K, D, dev):
+    """Target-longer problems whose best path runs along the suffix band's
+    edge into the gap landing: q = A + C, t = A + gap + C + Y with Y of
+    kband random bases, so the walk takes kband DOWN steps from the end,
+    then C on the edge diagonal, then the gap from the edge cell, whose
+    insertion term is the newest upperMax entry its suffix row reads."""
+    qs, ts, kbs = [], [], []
+    for _ in range(B):
+        kb = int(rng.integers(K // 2, K))
+        a, c = (rng.integers(0, 4, n).astype(np.int8)
+                for n in rng.integers(D // 4, D // 2 - 1, 2))
+        g = rng.integers(0, 4, int(rng.integers(300, 600))).astype(np.int8)
+        y = rng.integers(0, 4, kb).astype(np.int8)
+        qs.append(np.concatenate([a, c]))
+        ts.append(np.concatenate([a, g, c, y]))
+        kbs.append(kb)
+    packed = og.pack_one_gap_bucket(qs, ts, K, D)
+    return [torch.from_numpy(x).to(dev)
+            for x in list(packed) + [np.asarray(kbs, np.int32)]]
+
+
+def one_gap_patched(tmp_path, name, patches):
+    """lra_one_gap_traced of a copy of csrc/one_gap.cu with each (old,
+    new) of patches applied, built with nvcc into tmp_path."""
+    text = open(os.path.join(_ext.SRC_DIR, "one_gap.cu")).read()
+    for old, new in patches:
+        assert old in text
+        text = text.replace(old, new, 1)
+    src = tmp_path / f"{name}.cu"
+    src.write_text(text)
+    so = tmp_path / f"lib{name}.so"
+    subprocess.run([_ext._nvcc(), *_ext.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).lra_one_gap_traced
+    fn.restype = ctypes.c_int
+    fn.argtypes = og._ONE_GAP_ARGS + [ctypes.c_void_p]
+    return fn
+
+
+@pytest.mark.cuda
+def test_one_gap_overlap_lag_is_tight(cuda_device, tmp_path):
+    """The suffix warp waits for the prefix rows whose gap-table entries
+    it reads (csrc/one_gap.cu's `lag`).  With the prefix warp slowed down
+    (a sleep a row, so that the suffix warp always runs at its lag), the
+    kernel still equals its twin; built also to wait one row short of the
+    insertion terms' entries (two short of the kept wait, which also
+    covers the border-b' seed's entry, one further, whose value reaches no
+    output), it differs from the twin on target-longer problems with
+    D >> K that land the gap from the band edge."""
+    K, D, B = 16, 256, 8
+    args = edge_landing_bucket(np.random.default_rng(9), B, K, D,
+                               cuda_device)
+    L = 2 * (D + K) + 8
+    ref = og.one_gap_traced_plain(*args, K, D, M, MM, IND, L)
+    assert int((ref[0] == og.GAPDOWN).sum()) == B
+    plan = og.one_gap_plan(K, D, B, _ext.sm_count(0))
+    assert plan["WPP"] > 1
+    assert_one_gap_equal(og.one_gap_traced(*args, K, D, M, MM, IND, L), ref,
+                         "the source as it stands")
+    slow = ("    const int tj = ts[min(j - 1, HP - 1)];\n",
+            "    __nanosleep(2000);\n    const int tj = ts[min(j - 1, HP - 1)];\n")
+    short = ("lag = isA ? tLow + 1 : ubidx;",
+             "lag = isA ? tLow + 1 : ubidx - 2;")
+
+    def run(fn):
+        out = [torch.empty((B, L), dtype=torch.int8, device=cuda_device),
+               torch.empty(B, dtype=torch.int32, device=cuda_device),
+               torch.empty(B, dtype=torch.float32, device=cuda_device)]
+        scratch = torch.empty(max(1, plan["scratch"]), dtype=torch.uint8,
+                              device=cuda_device)
+        rc = fn(*[x.data_ptr() for x in args], scratch.data_ptr(),
+                *[x.data_ptr() for x in out], B, K, D, M, MM, IND, L,
+                *[plan[k] for k in og._OG_PLAN_KEYS],
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        return out
+
+    assert_one_gap_equal(run(one_gap_patched(tmp_path, "slow", [slow])),
+                         ref, "the prefix warp slowed")
+    got = run(one_gap_patched(tmp_path, "short", [slow, short]))
+    assert not (torch.equal(got[0], ref[0]) and
+                torch.equal(got[2].view(torch.int32),
+                            ref[2].view(torch.int32)))
 
 
 def chain_mask_batch(rng, B, N, dev):

@@ -2,12 +2,15 @@
 """A hand kernel of other trees against this tree's, on one card, on the
 inputs chip_smoke.py recorded:
 
-    python3 chip_smoke.py --save-k2 PATH       # or --save-k4 PATH
+    python3 chip_smoke.py --save-k2 PATH       # or --save-k4, --save-k6
     python3 tools/kernel_compare.py k2 PATH OTHER_TREE...
     python3 tools/kernel_compare.py k4 PATH OTHER_TREE...
+    python3 tools/kernel_compare.py k6 PATH OTHER_TREE...
 
-KERNEL is k2 (chain_scores_blocked, csrc/sdp_blocked.cu) or k4
-(banded_global_traced_packed, csrc/banded_global.cu).  Each OTHER_TREE
+KERNEL is k2 (chain_scores_blocked, csrc/sdp_blocked.cu), k4
+(banded_global_traced_packed, csrc/banded_global.cu) or k6
+(one_gap_traced, csrc/one_gap.cu; every recorded launch of each path,
+with the device time of a path's launches summed at the end).  Each OTHER_TREE
 is an unpacked `git archive` of a commit (or a copy of this tree with
 another source).  Its source is built with nvcc into
 OTHER_TREE/_<kernel>_build/ and called through ctypes: the
@@ -17,10 +20,10 @@ plan function).  On each path's largest input every kernel must equal
 this tree's plain twin bit for bit; then CUDA-event medians in turns
 (each runner, this tree's wrapper twice, each runner again in reverse
 order), K4 of this tree also with its walk skipped; and each runner
-BACK_TO_BACK
-times between two events, the card's time per launch with the host's
-work hidden, and BACK_TO_BACK times under torch.profiler, the device
-time of its kernels a call.  With --phases, each OTHER_TREE with the old K2 entry point
+BACK_TO_BACK times between two events, the card's time per launch with
+the host's work hidden (two rounds, the second in reverse order), and
+BACK_TO_BACK times under torch.profiler, the device time of its kernels
+a call.  With --phases, each OTHER_TREE with the old K2 entry point
 is also built with its serial in-block pass and, separately, its
 cross-block loop cut out, and timed: a phase split by subtraction (those
 copies' outputs are not checked).  Needs a CUDA device; prints the
@@ -224,7 +227,91 @@ class K2:
         return sb.chain_scores_blocked_plain(*self.args, self.key)
 
 
-KERNELS = {"k2": K2, "k4": K4}
+class K6:
+    """one_gap_traced; inputs (q_head, t_head, q_tail, t_tail, qlen, tlen,
+    kband, K, D, m, mm, indel, L).  chip_smoke.py --save-k6 saves every K6
+    launch of each path, labelled "<path> #<launch>"."""
+
+    lib, src = "one_gap", "one_gap.cu"
+    planned_mark = "int tables_smem"    # the planned entry point's
+    outs = ("ops", "jump", "score")
+    patches: dict = {}
+
+    def __init__(self, args, kw):
+        self.args = [a.cuda() for a in args[:7]]
+        self.K, self.D, self.m, self.mm, self.indel, self.L = args[7:13]
+
+    def shape(self) -> str:
+        import chip_smoke as cs
+
+        B = self.args[0].shape[0]
+        p, s = cs.one_gap_rows(self.args, self.K, self.D)
+        real = int(cs.one_gap_real(self.args).sum())
+        return (f"B={B} K={self.K} D={self.D} ({real} real problems, at "
+                f"most {int((p + s).max())} rows a problem)")
+
+    @staticmethod
+    def entry(so: str, planned: bool):
+        from lra_tpu_torch.ops import one_gap as og
+
+        fn = ctypes.CDLL(so).lra_one_gap_traced
+        fn.restype = ctypes.c_int
+        fn.argtypes = (og._ONE_GAP_ARGS if planned else
+                       [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7) + \
+            [ctypes.c_void_p]
+        return fn
+
+    def runner(self, fn, planned):
+        import torch
+
+        K, D, L = self.K, self.D, self.L
+        B = self.args[0].shape[0]
+        consts = [self.m, self.mm, self.indel, L]
+        if planned:
+            from lra_tpu_torch.ops import _ext
+            from lra_tpu_torch.ops import one_gap as og
+
+            plan = og.one_gap_plan(K, D, B, _ext.sm_count(0))
+            scratch = [torch.empty(max(1, plan["scratch"]),
+                                   dtype=torch.uint8, device="cuda")]
+            tail = [B, K, D] + consts + [plan[k] for k in og._OG_PLAN_KEYS]
+        else:
+            TP1, TS1, UP = D + K, D + K + 3, D + 3 * K + 4
+            scratch = [torch.empty(n, dtype=dt, device="cuda") for n, dt in (
+                (B * TP1 * (2 * K + 1), torch.int8),
+                (B * TS1 * (2 * K + 4), torch.int8),
+                (B * TP1, torch.float32), (B * TP1, torch.int32),
+                (B * UP, torch.float32), (B * UP, torch.int32))]
+            tail = [B, K, D] + consts
+
+        head = [x.data_ptr() for x in self.args + scratch]
+
+        def run():
+            out = [torch.empty((B, L), dtype=torch.int8, device="cuda"),
+                   torch.empty(B, dtype=torch.int32, device="cuda"),
+                   torch.empty(B, dtype=torch.float32, device="cuda")]
+            rc = fn(*head, *[x.data_ptr() for x in out], *tail,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"K6: CUDA launch failed ({rc})")
+            return out
+        run.scratch = scratch
+        return run
+
+    def wrapper(self):
+        from lra_tpu_torch.ops import one_gap as og
+
+        return og.one_gap_traced(*self.args, self.K, self.D, self.m,
+                                 self.mm, self.indel, self.L)
+
+    def plain(self):
+        from lra_tpu_torch.ops import one_gap as og
+
+        return og.one_gap_traced_plain(*self.args, self.K, self.D, self.m,
+                                       self.mm, self.indel, self.L)
+
+
+KERNELS = {"k2": K2, "k4": K4, "k6": K6}
 PLAN_KEYS = ("tier", "threads", "smem")     # K2's planned entry point
 
 
@@ -252,9 +339,10 @@ def device_ms(run, n: int = BACK_TO_BACK) -> tuple:
     return tot / 1e3 / n, cnt / n
 
 
-def exact_all(cs, name, got, ref) -> None:
+def exact_all(cs, spec, name, got, ref) -> None:
     if isinstance(ref, (tuple, list)):
-        for nm, x, y in zip(("V", "bp", "lane"), got, ref):
+        for nm, x, y in zip(getattr(spec, "outs", ("V", "bp", "lane")),
+                            got, ref):
             cs.exact(f"{name} {nm}", x, y)
     else:
         cs.exact(name, got, ref)
@@ -294,14 +382,15 @@ def main() -> int:
                                 spec.lib, patch)
                 cut.append((f"{tr} {name}", spec.entry(so, False)))
     cs.log(cs.smi_line())
+    sums: dict = {}     # path: [device ms summed over its launches, per tree]
     for label, (args, kw) in inputs.items():
         k = spec(args, kw)
         runs = [k.runner(fn, planned) for _, fn, planned in built]
         names = [tr for tr, _, _ in built]
         ref = k.plain()
         for tr, run in zip(names, runs):
-            exact_all(cs, f"{argv[0]} of {tr} [{label}]", run(), ref)
-        exact_all(cs, f"{argv[0]} [{label}]", k.wrapper(), ref)
+            exact_all(cs, spec, f"{argv[0]} of {tr} [{label}]", run(), ref)
+        exact_all(cs, spec, f"{argv[0]} [{label}]", k.wrapper(), ref)
         torch.cuda.synchronize()
         first = [cs.cuda_ms(run, 10) for run in runs]
         mine = [cs.cuda_ms(k.wrapper, 10), cs.cuda_ms(k.wrapper, 10)]
@@ -316,12 +405,17 @@ def main() -> int:
                            for tr, a, b in zip(names, first, last)))
         # back to back: the card's time per launch, the host's enqueue
         # hidden behind the launches before it
+        # (two rounds, the second in reverse order)
         b2b = [[cs.cuda_ms(lambda: [run() for _ in range(BACK_TO_BACK)], 3)
-                / BACK_TO_BACK for run in runs] for _ in range(2)]
+                / BACK_TO_BACK for run in rnd] for rnd in (runs, runs[::-1])]
+        b2b[1] = b2b[1][::-1]
         cs.log(f"{argv[0]} [{label}] back to back, ms per launch: "
                + "; ".join(f"{tr} {a:.4f}, {b:.4f}"
                            for tr, a, b in zip(names, *b2b)))
         dev = [device_ms(run) for run in runs]
+        path = label.split(" #")[0]
+        sums[path] = [a + t for a, (t, _) in
+                      zip(sums.get(path, [0.0] * len(runs)), dev)]
         cs.log(f"{argv[0]} [{label}] device time under the profiler, ms a "
                f"call: " + "; ".join(f"{tr} {t:.4f} ({k:g} kernels)"
                                      for tr, (t, k) in zip(names, dev)))
@@ -334,6 +428,11 @@ def main() -> int:
             cs.log(f"{argv[0]} [{label}] phase split, back to back, ms per "
                    f"launch: whole " + ", ".join(f"{w:.4f}" for w in whole)
                    + "; " + "; ".join(f"{n} {t:.4f}" for n, t in res))
+    if any(" #" in label for label in inputs):
+        for path, tot in sums.items():
+            cs.log(f"{argv[0]} [{path}] device time of the recorded launches "
+                   f"summed (a run's), ms: " + "; ".join(
+                       f"{tr} {t:.4f}" for tr, t in zip(names, tot)))
     cs.log(cs.smi_line())
     return 0
 
