@@ -6,6 +6,8 @@
                                            # K4 input (tools/kernel_compare.py)
     python3 chip_smoke.py --save-k2 PATH   # the same for K2
     python3 chip_smoke.py --save-k6 PATH   # every K6 launch of each path
+    python3 chip_smoke.py --save-p1 PATH   # every P1 launch of each path
+    python3 chip_smoke.py --save-k3 PATH   # every K3 launch of each path
 
 Needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); exits non-zero without a result line otherwise, and on any
@@ -24,10 +26,13 @@ failure.  Phases:
    (K, D) buckets up to 2052 lanes, the tier edges K = 16, 32, 64, D 16
    to 4096 (past the shared memory of the planes), B across the
    warps-a-problem edge, buckets of pad rows and tie-dense problems, in
-   both closure regimes with gaps of 200 bp to 50 kb, K3 at N = 64..8192, K7
-   at N = 1280..40960 with W = 64..16384, B = 1..3, on an instance where
-   the far term wins and on tie-dense instances), K7's cluster size and
-   how many such clusters fit on the card;
+   both closure regimes with gaps of 200 bp to 50 kb; K3 with every plan
+   at N = 64..8192 on K2's outputs and on sim.mask_problems' edges; P1
+   with every plan at S = 16..14528 on sim.rowsync_problems' edges, its
+   decoded blocks equal to K4's; K7 at N = 1280..40960 with W =
+   64..16384, B = 1..3, on an instance where the far term wins and on
+   tie-dense instances), K7's cluster size and how many such clusters fit
+   on the card;
 3. end to end, through align_reads(..., device="cuda"), each path run
    with the launch counts reset just before and read just after, device
    stage times from CUDA events; a path fails if one of its kernels was
@@ -59,18 +64,20 @@ failure.  Phases:
    exact with each launch plan, timed per call and back to back; every K6
    launch's (B, K, D, real problems, longest shorter side) per path, and
    K6 on each path's largest input and the one with the most rows a
-   problem, exact with every plan, timed per call and back to back; K7 on
-   the largest
-   input of CONTIG (b) and of (c), exact and timed with clusters of 8
-   and 16 CTAs;
+   problem, exact with every plan, timed per call and back to back; every
+   P1 launch's (B, S, K) per path, and P1 on each of them, exact with
+   every plan and its blocks equal to K4's, timed per call and back to
+   back; K3's (B, N) on the driver path, exact with every plan; K7 on
+   the largest input of CONTIG (b) and of (c), exact and timed with
+   clusters of 8 and 16 CTAs;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
    device="cuda": the first 16 CCS reads in both configurations, the
    first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
    genome with the port's buckets cut to (64,) and SHARD_N to 2048 for
    that call, so that K7 and the shard rounds lie on the compared path;
-7. one more run each of CCS use_pallas=True, ONT, CLR and CONTIG (b)
-   under torch.profiler: the device's busy share and the device time and
-   launches of the hand kernels against all other kernels.
+7. one more run each of CCS in both configurations, ONT, CLR and CONTIG
+   (b) under torch.profiler: the device's busy share and the device time
+   and launches of the hand kernels against all other kernels.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {...}}.
@@ -121,7 +128,7 @@ KERNELS = {
                                     "lra_tpu/ops/affine_kernel.py:546"),
     "one_gap_traced": ("lra_tpu_torch/csrc/one_gap.cu",
                        "lra_tpu/ops/one_gap.py:434"),
-    "banded_pallas_rowsync": ("lra_tpu_torch/csrc/rowsync.cu",
+    "banded_pallas_rowsync": ("lra_tpu_torch/csrc/banded_global.cu",
                               "lra_tpu/ops/affine_pallas.py:225"),
     "chain_scores_windowed": ("lra_tpu_torch/csrc/sdp_windowed.cu",
                               "lra_tpu/ops/sdp_windowed.py:111"),
@@ -396,6 +403,72 @@ def mask_bound(V, bits) -> tuple:
 
 # ------------------------------------------------------------- phases ---
 
+def rowsync_plan_str(plan) -> str:
+    return ("PPC {PPC} R {R} smem {smem}, " + ("shared" if plan["smem_plane"]
+                                               else "device") + " plane"
+            ).format(**plan)
+
+
+def rowsync_check(tag, a, K, scores=(M, MM, IND)) -> tuple:
+    """P1 on a (q, t, qlen, tlen, kband) against its plain twin, through
+    the wrapper and with every plan of ap.rowsync_plan_variants: the P
+    plane equal byte for byte; its decoded blocks equal K4's on the same
+    inputs.  Returns (the twin's ms, the plans' names)."""
+    import torch
+
+    from lra_tpu_torch.ops import affine_kernel as ak
+    from lra_tpu_torch.ops import affine_pallas as ap
+
+    S = a[0].shape[1]
+    ref, pms = timed(lambda: ap.banded_pallas_rowsync_plain(
+        *a[:4], K, *scores, a[4]))
+    got = ap.banded_pallas_rowsync(*a[:4], K, *scores, kband=a[4])
+    torch.cuda.synchronize()
+    exact(f"banded_pallas_rowsync {tag}", got, ref)
+    names = []
+    for name, plan in ap.rowsync_plan_variants(S):
+        out = ap._rowsync_cuda(*a[:4], a[4], K, *scores, plan=plan)
+        torch.cuda.synchronize()
+        exact(f"banded_pallas_rowsync {tag} {name}", out, ref)
+        names.append(name)
+    ops = ak.banded_global_traced_packed(*a[:4], K, *scores, kband=a[4])
+    ql, tl = a[2].cpu().numpy(), a[3].cpu().numpy()
+    rs = ap.blocks_from_rowsync(got.cpu().numpy(), ql, tl, S)
+    k4 = ak.blocks_from_ops_batch(ak.unpack_ops(ops.cpu().numpy()))
+    if rs != k4:
+        bad = [b for b, (x, y) in enumerate(zip(rs, k4)) if x != y]
+        raise AssertionError(f"banded_pallas_rowsync {tag}: decoded blocks "
+                             f"differ from K4's at problems {bad[:5]}")
+    return pms, names
+
+
+def mask_check(tag, args) -> None:
+    """K3 on (V, bp, valid) against its plain twin, through the wrapper
+    and with every plan of sb.mask_plan_variants: vmax (as int32 bits)
+    and the words equal; logs the wrapper's time beside the twin's."""
+    import torch
+
+    from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.ops import sdp_blocked as sb
+
+    B, N = args[0].shape
+    ref, pms = timed(lambda: sb.chain_mask_from_scores_plain(*args))
+    runs = [("wrapper", lambda: sb.chain_mask_from_scores(*args))]
+    runs += [(name, lambda plan=plan: sb._chain_mask_from_scores_cuda(
+        *args, plan=plan)) for name, plan in sb.mask_plan_variants(N)]
+    for name, fn in runs:
+        got = fn()
+        torch.cuda.synchronize()
+        exact(f"chain_mask_from_scores {tag} {name} vmax", got[0], ref[0])
+        exact(f"chain_mask_from_scores {tag} {name} bits", got[1], ref[1])
+    ms = cuda_ms(runs[0][1], 5)
+    plan = sb.mask_plan(N, B, _ext.sm_count(0))
+    log(f"kernel chain_mask_from_scores {tag} (tier {plan['tier']}, "
+        f"{plan['ppb']} a block, {plan['threads']} threads): exact with "
+        f"{', '.join(n for n, _ in runs[1:])}; {ms:.4f} ms (plain "
+        f"{pms:.1f} ms)")
+
+
 def kernel_phase(dev) -> None:
     import torch
 
@@ -407,7 +480,8 @@ def kernel_phase(dev) -> None:
     from lra_tpu_torch.ops import sdp_blocked as sb
     from lra_tpu_torch.ops import sdp_windowed as sw
     from lra_tpu_torch.ops.gapcost import from_options
-    from lra_tpu_torch.sim import refine_problems
+    from lra_tpu_torch.sim import (mask_problems, refine_problems,
+                                   rowsync_problems)
 
     rng = np.random.default_rng(0)
     key = from_options(preset("ccs")).static_key()
@@ -444,21 +518,25 @@ def kernel_phase(dev) -> None:
             f"with each launch plan; {ms:.4f} ms (plain {pms:.1f} ms, "
             f"bound {bnd:.5f} ms, {by})")
     # K3 on K2's last outputs (real backpointers; a prefix of a problem is
-    # a problem, bp[i] < i) with valid prefixes
+    # a problem, bp[i] < i) with valid prefixes, then on sim.mask_problems'
+    # buckets (no valid row, vmax < 0, vmax = 0, ties for vmax, a chain of
+    # all N rows) at N = 64 to 8192, B across the warp tier's edge of 8
+    # problems a block; every plan
     V, bp = got[0], got[1]
     valid = torch.arange(N, device=dev)[None, :] < \
         torch.from_numpy(rng.integers(1, N + 1, 16)).to(dev)[:, None]
-    for NN in (64, 512, N):
-        args = (V[:, :NN].contiguous(), bp[:, :NN].contiguous(),
-                valid[:, :NN].contiguous())
-        k3 = sb.chain_mask_from_scores(*args)
-        torch.cuda.synchronize()
-        ref3, pms = timed(lambda: sb.chain_mask_from_scores_plain(*args))
-        exact(f"chain_mask_from_scores N={NN} vmax", k3[0], ref3[0])
-        exact(f"chain_mask_from_scores N={NN} bits", k3[1], ref3[1])
-        ms = cuda_ms(lambda: sb.chain_mask_from_scores(*args), 5)
-        log(f"kernel chain_mask_from_scores B=16 N={NN}: exact; "
-            f"{ms:.4f} ms (plain {pms:.1f} ms)")
+    full = 8 * _ext.sm_count(0)
+    cases = [(f"K2 outputs B=16 N={NN}", [x[:, :NN].contiguous()
+                                         for x in (V, bp, valid)])
+             for NN in (64, 512, N)]
+    cases += [(f"B={Bm} N={Nm}", [torch.from_numpy(x).to(dev) for x in
+                                  mask_problems(rng, Bm, Nm)])
+              for Bm, Nm in ((13, 64), (full - 1, 64), (full, 64),
+                             (13, 512), (full, 512), (13, 1024),
+                             (full, 1024), (13, 2048), (5, 4096),
+                             (300, 8192))]
+    for name, args in cases:
+        mask_check(name, args)
     # K7: driver-padded contig-like problems (a block count that is no
     # multiple of the cluster, windows of fewer blocks than the cluster's
     # CTAs, three clusters), one where the far term wins (FAR1/FAR2
@@ -542,29 +620,25 @@ def kernel_phase(dev) -> None:
         log(f"kernel banded_refine_traced_packed B={B} K={K} S={S} "
             f"{plan_str(ak.refine_plan(K, B))}: exact, and with each "
             f"launch plan; {ms:.3f} ms (plain {pms:.1f} ms)")
-    K = 30
-    for S in (64, 512, 2048):
-        a = banded_inputs(rng, 64, S, K, dev)
-        P = ap.banded_pallas_rowsync(*a[:4], K, M, MM, IND, kband=a[4])
-        torch.cuda.synchronize()
-        Pref = ap.banded_pallas_rowsync_plain(*a[:4], K, M, MM, IND, a[4])
-        torch.cuda.synchronize()
-        exact(f"banded_pallas_rowsync S={S}", P, Pref)
-        ops = ak.banded_global_traced_packed(*a[:4], K, M, MM, IND,
-                                             kband=a[4])
-        torch.cuda.synchronize()
-        ql, tl = a[2].cpu().numpy(), a[3].cpu().numpy()
-        rs = ap.blocks_from_rowsync(P.cpu().numpy(), ql, tl, S)
-        k4 = ak.blocks_from_ops_batch(ak.unpack_ops(ops.cpu().numpy()))
-        if rs != k4:
-            raise AssertionError(f"rowsync S={S}: decoded blocks differ "
-                                 "from banded_global_traced_packed's")
+    # P1 on sim.rowsync_problems (the walk's edges, then rows with SNPs
+    # and indels) at S = 16 to 2048 and at K = 15, 30 and 31 (band 63, the
+    # widest P1 takes), B across the edge of 8 problems a block, S = 2048
+    # where 6 problems fit a block, S = 14528 where none fits (the device
+    # plane); every plan of ap.rowsync_plan_variants
+    for B, S, K in ((13, 16, 30), (full - 1, 16, 30), (full, 16, 30),
+                    (13, 32, 30), (2048, 32, 30), (13, 64, 15),
+                    (full, 64, 30), (13, 64, 31), (13, 512, 30),
+                    (full, 512, 30), (13, 2048, 30), (full, 2048, 30),
+                    (8, 14528, 30)):
+        a = [torch.from_numpy(x).to(dev)
+             for x in rowsync_problems(rng, B, S, K)]
+        pms, names = rowsync_check(f"B={B} S={S} K={K}", a, K)
         ms = cuda_ms(lambda: ap.banded_pallas_rowsync(
             *a[:4], K, M, MM, IND, kband=a[4]), 5)
-        pms = cuda_ms(lambda: ap.banded_pallas_rowsync_plain(
-            *a[:4], K, M, MM, IND, a[4]), 1)
-        log(f"kernel banded_pallas_rowsync B=64 K=30 S={S}: exact, blocks "
-            f"== K4's; {ms:.3f} ms (plain {pms:.1f} ms)")
+        log(f"kernel banded_pallas_rowsync B={B} S={S} K={K} "
+            f"({rowsync_plan_str(ap.rowsync_plan(S, B))}): exact with "
+            f"{', '.join(names)}, blocks == K4's; {ms:.3f} ms (plain "
+            f"{pms:.1f} ms)")
     # K6 in both closure regimes with every launch plan (og.plan_variants):
     # PR 2's (K, D) buckets up to 2052 lanes; the tier edges (K = 16 and
     # 32 the warp tier, 64 the CTA tier); D from 16 to 4096 (the planes
@@ -623,6 +697,13 @@ def kernel_phase(dev) -> None:
                 f"(plain {pms:.1f} ms)")
 
 
+def clone_call(args, kw) -> tuple:
+    """Copies of a call's tensor arguments (the caller may reuse them)."""
+    def c(x):
+        return x.clone() if hasattr(x, "clone") else x
+    return [c(x) for x in args], {k: c(v) for k, v in kw.items()}
+
+
 class Recorder:
     """Wraps the kernel entry points the pipeline calls and keeps the
     inputs of the largest call each kernel gets (warm-up runs only)."""
@@ -649,6 +730,10 @@ class Recorder:
         self.og_calls: dict = {}    # path label: (B, K, D, real problems,
         #                             their longest shorter side)
         self.og_inputs: dict = {}   # path label: K6's inputs of each call
+        self.p1_calls: dict = {}    # path label: (B, S, K) of each P1 call
+        self.p1_inputs: dict = {}   # path label: P1's inputs of each call
+        self.k3_calls: dict = {}    # path label: (B, N) of each K3 call
+        self.k3_inputs: dict = {}   # path label: K3's inputs of each call
         self.masked = False     # inside the driver's masked round
         self.path = None
         self.saved = []
@@ -704,6 +789,16 @@ class Recorder:
                 keep.append((self.blocked, self.path))
                 self.blocked_calls.setdefault(self.path, []).append(
                     (args[0].shape[0], args[0].shape[1], not self.masked))
+            if name == "banded_pallas_rowsync":
+                self.p1_calls.setdefault(self.path, []).append(
+                    (args[0].shape[0], args[0].shape[1], args[4]))
+                self.p1_inputs.setdefault(self.path, []).append(
+                    clone_call(args, kw))
+            if name == "chain_mask_from_scores":
+                self.k3_calls.setdefault(self.path, []).append(
+                    tuple(args[0].shape))
+                self.k3_inputs.setdefault(self.path, []).append(
+                    clone_call(args, kw))
             if name == "one_gap_traced":
                 real = one_gap_real(args)
                 self.og_calls.setdefault(self.path, []).append(
@@ -1214,6 +1309,36 @@ def one_gap_paths_phase(rec) -> None:
                                 for c, w in res[name]))
 
 
+def rowsync_paths_phase(rec) -> None:
+    """P1 against its twin on every launch each path recorded, exact with
+    every plan of ap.rowsync_plan_variants and its decoded blocks equal
+    to K4's (rowsync_check); each launch timed through the wrapper, per
+    call and back to back, in two rounds."""
+    from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.ops import affine_pallas as ap
+
+    if not rec.p1_inputs:
+        raise AssertionError("no main-path call of banded_pallas_rowsync "
+                             "recorded")
+    for label, calls in rec.p1_inputs.items():
+        for i, (args, kw) in enumerate(calls):
+            q, t, qlen, tlen, K = args[:5]
+            a = [q, t, qlen, tlen, kw["kband"]]
+            B, S = q.shape
+            pms, names = rowsync_check(f"[{label}] #{i}", a, K,
+                                       tuple(args[5:8]))
+            fn = lambda: ap.banded_pallas_rowsync(*args, **kw)
+            res = [(cuda_ms(fn, 10), back_to_back(fn)) for _ in range(2)]
+            plan = ap.rowsync_plan(S, B, _ext.sm_count(0))
+            log(f"P1 [{label}] #{i} B={B} S={S} K={K} "
+                f"({int((tlen.clamp(max=S) + 1).sum())} DP rows; "
+                f"{rowsync_plan_str(plan)}): exact with "
+                f"{', '.join(names)}, blocks == K4's; plain twin "
+                f"{pms:.1f} ms; " + "; ".join(
+                    f"per call {c:.4f} ms, back to back {w:.4f}"
+                    for c, w in res))
+
+
 def blocked_paths_phase(rec) -> None:
     """K2 against its twin on the largest input each path gave it, exact
     with every launch plan (sb.plan_variants); timed through the wrapper
@@ -1440,7 +1565,8 @@ def contig_parity(work) -> None:
 
 
 HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
-        "chain_mask_kernel", "banded_global_kernel",
+        "chain_mask_warp_kernel", "chain_mask_cta_kernel",
+        "banded_global_kernel",
         "banded_refine_kernel", "rowsync_kernel", "one_gap_warp_kernel",
         "one_gap_kernel",
         "sdp_windowed_kernel")
@@ -1544,12 +1670,25 @@ def main() -> int:
     launch_shapes("K6", rec.og_calls,
                   "(B, K, D, real problems, longest shorter side)")
     one_gap_paths_phase(rec)
+    launch_shapes("P1", rec.p1_calls, "(B, S, K)")
+    rowsync_paths_phase(rec)
+    launch_shapes("K3", rec.k3_calls, "(B, N)")
+    for label, calls in rec.k3_inputs.items():
+        for i, (args, _) in enumerate(calls):
+            mask_check(f"[{label}] #{i} B={args[0].shape[0]} "
+                       f"N={args[0].shape[1]}", args)
     k6_store = {f"{label} #{i}": (0, args, {})
                 for label, calls in rec.og_inputs.items()
                 for i, args in enumerate(calls)}
+    p1_store, k3_store = ({f"{label} #{i}": (0, *call)
+                           for label, calls in inputs.items()
+                           for i, call in enumerate(calls)}
+                          for inputs in (rec.p1_inputs, rec.k3_inputs))
     for flag, tag, store in (("--save-k4", "K4", rec.glob),
                              ("--save-k2", "K2", rec.blocked),
-                             ("--save-k6", "K6", k6_store)):
+                             ("--save-k6", "K6", k6_store),
+                             ("--save-p1", "P1", p1_store),
+                             ("--save-k3", "K3", k3_store)):
         if flag in sys.argv:
             save_inputs(tag, store, sys.argv[sys.argv.index(flag) + 1])
     windowed_paths_phase(rec)
@@ -1557,7 +1696,8 @@ def main() -> int:
     cpu_parity(work, all_lines)
     contig_parity(work)
     log(f"[{time.perf_counter() - T0:.0f} s] cpu parity done")
-    for label in ("ccs use_pallas=True", "ont", "clr", "contig 2.5 Mb"):
+    for label in ("ccs use_pallas=True", "ccs", "ont", "clr",
+                  "contig 2.5 Mb"):
         profile_phase(work, label)
     log(f"total {time.perf_counter() - T0:.0f} s")
     log(smi)

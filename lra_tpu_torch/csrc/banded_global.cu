@@ -1,5 +1,7 @@
 // Banded global alignment with device traceback, 2-bit packed ops:
-// banded_global_traced_packed (K4).
+// banded_global_traced_packed (K4); and the same forward rows with a
+// row-synchronous traceback: banded_pallas_rowsync (P1, rowsync_kernel,
+// below).
 //
 // Replaces lra_tpu/ops/affine_kernel.py:banded_global_traced_packed
 // (:206), _banded_arrows (the forward rows) and _traceback_ops_device
@@ -81,10 +83,33 @@
 // - Rows are computed for j <= min(tlen, T); the walk starts at row
 //   min(tlen, T) and only moves down, so it reads written rows only.
 //
+// P1 replaces the repository's one Pallas kernel,
+// lra_tpu/ops/affine_pallas.py:_kernel (pl.pallas_call :188, reached from
+// banded_pallas_rowsync :225): the same forward rows (band <= 63), then a
+// traceback that visits each row once and writes one byte a row, P[b, j]
+// = rl << 2 | code (the LEFT run ending at the cell, then 1 DIAG, 2 DOWN,
+// 3 stop), into a uint8 [B, SP] plane, SP = ceil((S+1)/128) * 128, zero
+// where no row was visited.  rowsync_kernel is this kernel's <CPT 2, WP
+// 1> instance with walk_rowsync in place of walk_back, on its own plan
+// (ops/affine_pallas.py:rowsync_plan): a problem's whole plane (16 B a
+// row) and its staged row of P stay in shared memory while PPC problems
+// fit the 227 KB of a block (R = ceil((S+1)/2), so that S + 1 <= 2R),
+// PPC lowered before the plan falls back to a device plane walked over
+// staged chunks (S > 13669).  Every P1 launch on chip_smoke.py's paths is
+// CCS use_pallas's, K=30: B=2048 at S=16 and 32 down to B=8 at S=512.
+// The forward rows bound the large buckets as they bound K4's
+// (instruction issue, ~120 warp instructions a row); the walk bounds the
+// small ones by its latency, one dependent chain a turn: a turn takes a
+// run of up to 32 DIAG rows at once (lane k reads the cell's code in row
+// j - k, a ballot, a count of trailing ones), and only a row that ends a
+// LEFT run, or moves DOWN, takes the 64-bit mask and the count of leading
+// zeros.
+//
 // ptxas (sm_90a, chip_smoke.py logs it): 68 registers at CPT 2, 89 at
 // CPT 5, 123 at CPT 9, 127 at CPT 9 with WP > 1 (the __launch_bounds__
 // (256, 2) cap), no spills; dynamic shared memory only, PPC * (2 * R * P
-// + 16) bytes plus 32 * WP per problem at WP > 1.
+// + 16) bytes plus 32 * WP per problem at WP > 1.  rowsync_kernel: 117
+// registers, no spills; PPC * (2 * R * 16 + SP + 16) bytes.
 
 #include <mutex>
 
@@ -251,6 +276,113 @@ __device__ __forceinline__ void walk_back(const uint8_t* pl, uint8_t* buf,
   __syncwarp();
 }
 
+// The 32 bits of x at the even bits of a 64-bit word (bit l to bit 2l).
+__device__ __forceinline__ unsigned long long spread_bits(unsigned x) {
+  unsigned long long v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  return (v | (v << 1)) & 0x5555555555555555ull;
+}
+
+__device__ __forceinline__ uint4 lds_u128(unsigned addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// P1's row-synchronous traceback (lra_tpu/ops/affine_pallas.py:_kernel's
+// tb_row) by one warp at CPT 2, every lane on the same (i, j): from j =
+// min(tl, T) down to the stop, over the plane's 16-byte rows in shared
+// memory (the whole plane, or chunks of R rows staged as in walk_back;
+// word 2c / 2c+1 holds bit 0 / 1 of cell 2l + c in bit l).  With d = i -
+// j + K (off the band: stop, nothing written), lane k reads the code of
+// cell d in row j - k (rows in the chunk); a ballot gives the run of DIAG
+// rows from j down, and a turn takes it whole: each such row's byte is 1
+// (rl 0, DIAG), i and j move down together and d stays.  Otherwise row
+// j alone: its LEFT cells (code 1: bit 0 without bit 1) make one 64-bit
+// mask, the even cells' word spread to the even bits and the odd cells'
+// to the odd ones (pads and invalid cells hold code 0 and are not LEFT);
+// rl is the LEFT run ending at d, from a count of leading zeros (d + 1
+// when it reaches cell 0), and the code of cell max(d - rl, 0) gives the
+// byte rl << 2 | (1 DIAG, 2 DOWN, 3 otherwise: stop); i -= rl + (DIAG).
+// The bytes go to a staged row of P in shared memory (stage: SP bytes,
+// zeroed first), which the warp copies to o[0, SP) at the end in 16-byte
+// stores, so that every byte of P is written.
+__device__ __forceinline__ void walk_rowsync(const uint8_t* pl, uint8_t* buf,
+                                             uint8_t* stage, uint8_t* o,
+                                             int ql, int tl, int T, int K,
+                                             int band, int R, int SP,
+                                             int lane, bool in_smem) {
+  constexpr int P = 16;
+  const int top = min(tl, T);
+  int j = top, iv = ql;
+  bool active = true;
+  for (int v = lane; v < SP / 16; v += 32)
+    *(uint4*)(stage + 16 * v) = make_uint4(0, 0, 0, 0);
+  int lo = in_smem ? 0 : max(0, top - R + 1);
+  int cur = 0;
+  if (!in_smem) stage_rows(buf, pl, lo, top - lo + 1, P, lane);
+  for (;;) {
+    const int nlo = max(0, lo - R);
+    if (lo > 0)
+      stage_rows(buf + (cur ^ 1) * R * P, pl, nlo, lo - nlo, P, lane);
+    if (lo > 0) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+    const unsigned rows =
+        (unsigned)__cvta_generic_to_shared(buf + cur * R * P);
+    while (j >= lo) {
+      const int dk = iv - j + K;
+      if ((unsigned)dk >= (unsigned)band) {
+        active = false;
+        break;
+      }
+      const unsigned at = rows + (j - lo) * P;
+      const int below = min(j - lo, 31), l = dk >> 1;
+      const bool diag =
+          code_at(lds_u64(at - min(lane, below) * P + 8 * (dk & 1)), l) ==
+          DIAG;
+      const unsigned run = __ballot_sync(FULL, diag) & ((2u << below) - 1);
+      const int n = __clz(__brev(~run));  // DIAG rows from j down
+      if (n > 0) {
+        if (lane < n) stage[j - lane] = 1;
+        iv -= n;
+        j -= n;
+        continue;
+      }
+      const uint4 w = lds_u128(at);
+      const unsigned long long M =
+          spread_bits(w.x & ~w.y) | (spread_bits(w.z & ~w.w) << 1);
+      const unsigned long long z = ~M & (~0ull >> (63 - dk));
+      const int rl = z == 0 ? dk + 1 : dk - (63 - __clzll((long long)z));
+      const int d2 = max(dk - rl, 0), l2 = d2 >> 1;
+      const unsigned b0 = d2 & 1 ? w.z : w.x, b1 = d2 & 1 ? w.w : w.y;
+      const int a2 = (int)((b0 >> l2) & 1u) | (int)(((b1 >> l2) & 1u) << 1);
+      const int code = a2 == DIAG ? 1 : (a2 == DOWN ? 2 : 3);
+      if (lane == 0) stage[j] = (uint8_t)((rl << 2) | code);
+      --j;
+      if (code == 3) {
+        active = false;
+        break;
+      }
+      iv -= rl + (code == 1);
+    }
+    if (!active || lo == 0) break;
+    __syncwarp();  // the warp is done with buf[cur] before it is restaged
+    lo = nlo;
+    cur ^= 1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+  for (int v = lane; v < SP / 16; v += 32)
+    *(uint4*)(o + 16 * v) = *(const uint4*)(stage + 16 * v);
+  __syncwarp();
+}
+
 // What a warp of a WP > 1 group publishes each row (slot of row parity).
 struct Xch {
   float agg;    // max over the warp's cells of base - indel * d
@@ -259,24 +391,32 @@ struct Xch {
   int vfirst;   // its first cell is valid
 };
 
-template <int CPT, bool MULTI>
-__global__ void __launch_bounds__(256, 2)
-banded_global_kernel(const int8_t* __restrict__ q,
-                     const int8_t* __restrict__ t,
-                     const int* __restrict__ qlen,
-                     const int* __restrict__ tlen,
-                     const int* __restrict__ kband,
-                     uint8_t* __restrict__ planes, uint8_t* __restrict__ out,
-                     int* __restrict__ counter, int B, int Q, int T, int K,
-                     float m, float mm, float indel, int WP, int P, int R,
-                     int walk) {
+// The kernels' parameters: one bucket of problems and its launch plan.
+#define BANDED_PARAMS                                                      \
+  const int8_t *__restrict__ q, const int8_t *__restrict__ t,              \
+      const int *__restrict__ qlen, const int *__restrict__ tlen,          \
+      const int *__restrict__ kband, uint8_t *__restrict__ planes,         \
+      uint8_t *__restrict__ out, int *__restrict__ counter, int B, int Q,  \
+      int T, int K, float m, float mm, float indel, int WP, int P, int R, \
+      int walk, int SP
+#define BANDED_ARGS                                                        \
+  q, t, qlen, tlen, kband, planes, out, counter, B, Q, T, K, m, mm, indel, \
+      WP, P, R, walk, SP
+
+// The forward rows of a bucket's problems and, after each problem's rows,
+// its walk: K4's op walk (walk_back; out: [B, (Q+T)/4] packed ops) or
+// P1's row walk (walk_rowsync; out: [B, SP] row codes).  planes: [B,
+// T+1, P] scratch, unless a problem's plane fits in shared memory.
+template <int CPT, bool MULTI, bool ROWSYNC>
+__device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int SEGC = 32 * CPT;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = warp / WP;
   const int wig = warp - g * WP;
-  const int gbytes = 2 * R * P + (MULTI ? 2 * WP * (int)sizeof(Xch) : 0) + 16;
+  const int gbytes = 2 * R * P + (MULTI ? 2 * WP * (int)sizeof(Xch) : 0) +
+                     (ROWSYNC ? SP : 0) + 16;
   uint8_t* buf = smem + g * gbytes;
   Xch* xch = (Xch*)(buf + 2 * R * P);
   int* slot = (int*)(buf + gbytes - 16);  // two problem indices, by parity
@@ -452,42 +592,69 @@ banded_global_kernel(const int8_t* __restrict__ q,
       nb = __shfl_sync(FULL, ticket, 0);
     }
     prefetch(nb);
-    if (walk && wig == 0)
-      walk_back<CPT, MULTI>(pl, buf, out + (size_t)b * (L / 4), ql, tl, T,
-                            K, band, P, R, L, lane, in_smem);
+    if (walk && wig == 0) {
+      if constexpr (ROWSYNC)
+        walk_rowsync(pl, buf, buf + 2 * R * P, out + (size_t)b * SP, ql, tl,
+                     T, K, band, R, SP, lane, in_smem);
+      else
+        walk_back<CPT, MULTI>(pl, buf, out + (size_t)b * (L / 4), ql, tl,
+                              T, K, band, P, R, L, lane, in_smem);
+    }
     b = nb;
   }
 }
 
-// The blocks of an instance that fit on the card at once (threads and
-// dynamic shared memory a block), after raising the instance's shared
-// memory limit on the device (never lowering it: a kept answer may be
-// for a larger block); the last 8 answers are kept, so that a launch
-// costs the host no query it has made before.
 template <int CPT, bool MULTI>
-cudaError_t resident_blocks(int dev, int threads, int smem, int* blocks) {
+__global__ void __launch_bounds__(256, 2)
+banded_global_kernel(BANDED_PARAMS) {
+  banded_rows<CPT, MULTI, false>(BANDED_ARGS);
+}
+
+__global__ void __launch_bounds__(256, 2) rowsync_kernel(BANDED_PARAMS) {
+  banded_rows<2, false, true>(BANDED_ARGS);
+}
+
+using Kernel = decltype(&rowsync_kernel);  // every instance's type
+
+// The blocks of a kernel that fit on the card at once (threads and
+// dynamic shared memory a block), after raising the kernel's shared
+// memory limit on the device (never lowering it: a kept answer may be
+// for a larger block); the last 32 answers are kept, so that a launch
+// costs the host no query it has made before.
+cudaError_t resident_blocks(Kernel kern, int dev, int threads, int smem,
+                            int* blocks) {
   struct Entry {
+    Kernel kern;
     int dev, threads, smem, blocks;
   };
-  static Entry seen[8];
-  static int n = 0, raised[64] = {0};
+  struct Raised {
+    Kernel kern;
+    int dev, smem;
+  };
+  static Entry seen[32];
+  static Raised raised[16];
+  static int n = 0, nr = 0;
   static std::mutex mu;
   std::lock_guard<std::mutex> lock(mu);
-  for (int k = 0; k < n && k < 8; ++k)
-    if (seen[k].dev == dev && seen[k].threads == threads &&
-        seen[k].smem == smem) {
+  for (int k = 0; k < n && k < 32; ++k)
+    if (seen[k].kern == kern && seen[k].dev == dev &&
+        seen[k].threads == threads && seen[k].smem == smem) {
       *blocks = seen[k].blocks;
       return cudaSuccess;
     }
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  auto kern = banded_global_kernel<CPT, MULTI>;
+  int r = 0;
+  while (r < nr && !(raised[r].kern == kern && raised[r].dev == dev)) ++r;
+  if (r == nr) {
+    if (nr == 16) return cudaErrorInvalidDevice;
+    raised[nr++] = {kern, dev, 0};
+  }
   int sms = 0, per_sm = 0;
   cudaError_t e = cudaSuccess;
-  if (smem > raised[dev]) {
+  if (smem > raised[r].smem) {
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    raised[dev] = smem;
+    raised[r].smem = smem;
   }
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
@@ -495,35 +662,25 @@ cudaError_t resident_blocks(int dev, int threads, int smem, int* blocks) {
                                                     smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  seen[n % 8] = {dev, threads, smem, per_sm * sms};
+  seen[n % 32] = {kern, dev, threads, smem, per_sm * sms};
   ++n;
   *blocks = per_sm * sms;
   return cudaSuccess;
 }
 
-template <int CPT, bool MULTI>
-int launch(const void* q, const void* t, const void* qlen, const void* tlen,
-           const void* kband, void* planes, void* out, void* counter, int B,
-           int Q, int T, int K, int m, int mm, int indel, int WP, int PPC,
-           int P, int R, int smem, int walk, cudaStream_t stream) {
-  auto kern = banded_global_kernel<CPT, MULTI>;
-  const int threads = 32 * WP * PPC;
-  // persistent grid: the blocks that fit on the card at once, at most one
-  // per PPC problems
+// The persistent grid of kern for B problems, PPC a block of `threads`:
+// the blocks that fit on the card at once, at most one per PPC problems;
+// the problem counter zeroed on the stream.
+cudaError_t persistent_grid(Kernel kern, int B, int threads, int PPC,
+                            int smem, int* counter, cudaStream_t stream,
+                            int* grid) {
   int dev = 0, fit = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if ((e = resident_blocks<CPT, MULTI>(dev, threads, smem, &fit)) !=
-      cudaSuccess)
-    return (int)e;
-  const int grid = min((B + PPC - 1) / PPC, fit);
-  e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<grid, threads, smem, stream>>>(
-      (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
-      (const int*)kband, (uint8_t*)planes, (uint8_t*)out, (int*)counter, B, Q,
-      T, K, (float)m, (float)mm, (float)indel, WP, P, R, walk);
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if ((e = resident_blocks(kern, dev, threads, smem, &fit)) != cudaSuccess)
+    return e;
+  *grid = min((B + PPC - 1) / PPC, fit);
+  return cudaMemsetAsync(counter, 0, sizeof(int), stream);
 }
 
 }  // namespace
@@ -538,19 +695,51 @@ extern "C" int lra_banded_global_traced_packed(
     const void* kband, void* planes, void* out, void* counter, int B, int Q,
     int T, int K, int m, int mm, int indel, int CPT, int WP, int PPC, int P,
     int R, int smem, int walk, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
   if (B == 0) return 0;
   if (2 * K + 1 > 32 * CPT * WP || P != 16 * ((CPT + 1) / 2) * WP ||
       PPC < 1 || WP * PPC > 8 || R < 1)
     return (int)cudaErrorInvalidValue;
-#define LRA_K4_LAUNCH(C, MULTI)                                              \
-  return launch<C, MULTI>(q, t, qlen, tlen, kband, planes, out, counter, B, \
-                          Q, T, K, m, mm, indel, WP, PPC, P, R, smem, walk, \
-                          st)
-  if (WP == 1 && CPT == 2) LRA_K4_LAUNCH(2, false);
-  if (WP == 1 && CPT == 5) LRA_K4_LAUNCH(5, false);
-  if (WP == 1 && CPT == 9) LRA_K4_LAUNCH(9, false);
-  if (WP > 1 && CPT == 9) LRA_K4_LAUNCH(9, true);
-#undef LRA_K4_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  Kernel kern = nullptr;
+  if (WP == 1 && CPT == 2) kern = banded_global_kernel<2, false>;
+  if (WP == 1 && CPT == 5) kern = banded_global_kernel<5, false>;
+  if (WP == 1 && CPT == 9) kern = banded_global_kernel<9, false>;
+  if (WP > 1 && CPT == 9) kern = banded_global_kernel<9, true>;
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int threads = 32 * WP * PPC;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(kern, B, threads, PPC, smem,
+                                        (int*)counter, st, &grid);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, threads, smem, st>>>(
+      (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
+      (const int*)kband, (uint8_t*)planes, (uint8_t*)out, (int*)counter, B, Q,
+      T, K, (float)m, (float)mm, (float)indel, WP, P, R, walk, 0);
+  return (int)cudaGetLastError();
+}
+
+// P1: q, t: int8 [B, S]; qlen, tlen, kband: int32 [B]; planes: uint8
+// scratch [B, S+1, 16] (unused when S + 1 <= 2R: the plane stays in
+// shared memory); P: uint8 [B, SP]; counter: one int32 of scratch.  PPC,
+// R and smem from ops/affine_pallas.py:rowsync_plan.  Needs 2K+1 <= 63
+// (run lengths in 6 bits).
+extern "C" int lra_banded_pallas_rowsync(
+    const void* q, const void* t, const void* qlen, const void* tlen,
+    const void* kband, void* planes, void* P, void* counter, int B, int S,
+    int SP, int K, int m, int mm, int indel, int PPC, int R, int smem,
+    void* stream) {
+  if (B == 0) return 0;
+  if (2 * K + 1 > 63 || PPC < 1 || PPC > 8 || R < 1 || SP < S + 1 ||
+      SP % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(rowsync_kernel, B, 32 * PPC, PPC,
+                                        smem, (int*)counter, st, &grid);
+  if (e != cudaSuccess) return (int)e;
+  rowsync_kernel<<<grid, 32 * PPC, smem, st>>>(
+      (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
+      (const int*)kband, (uint8_t*)planes, (uint8_t*)P, (int*)counter, B, S,
+      S, K, (float)m, (float)mm, (float)indel, 1, 16, R, 1, SP);
+  return (int)cudaGetLastError();
 }

@@ -19,20 +19,24 @@ Constraints (pallas_supported): square buckets (Q == T == S, S % 8 == 0)
 and band 2K+1 <= 63, so the run length fits 6 bits — the narrow
 gap-closing tier; wider tiers use banded_global_traced_packed.
 
-``banded_pallas_rowsync`` launches the CUDA kernel (csrc/rowsync.cu) for
-CUDA tensors and runs ``banded_pallas_rowsync_plain`` for CPU tensors.
+``banded_pallas_rowsync`` launches the CUDA kernel (csrc/banded_global.cu's
+rowsync_kernel: K4's forward rows, then the row walk over K4's 2-bit
+plane, on ``rowsync_plan``'s launch plan) for CUDA tensors and runs
+``banded_pallas_rowsync_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..align.affine import DIAG, DOWN, LEFT
 from . import _ext
-from .affine_kernel import _shift_right, banded_arrows_plain
+from .affine_kernel import (SMEM_MAX, _per_block, _shift_right,
+                            banded_arrows_plain)
 
 
 def _tile_rows(S: int, BANDP: int) -> int:
@@ -113,27 +117,86 @@ def banded_pallas_rowsync_plain(q, t, qlen, tlen, K, m, mm, indel, kband):
     return P.to(torch.uint8)
 
 
-_ROWSYNC_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_RS_P = 16           # plane bytes a row: K4's CPT 2 ballot words
+_RS_CHUNK_ROWS = 64  # rows a staged chunk of a global plane
 
 
-def _rowsync_cuda(q, t, qlen, tlen, kband, K, m, mm, indel):
+def rowsync_plan(S: int, B: int | None = None, sms: int = 132,
+                 smem_plane: bool = True) -> dict:
+    """Launch plan of csrc/banded_global.cu's rowsync_kernel (P1) for B
+    problems of S rows on a card of `sms` SMs: K4's CPT 2 tier on one
+    warp a problem, PPC problems a block (K4's _per_block: 8 when the
+    bucket gives every SM a block of 8 warps, else one), a plane of 16 B
+    a row.  A problem's shared memory: two chunks of R plane rows, its
+    staged row of P (SP bytes) and its problem indices (16 bytes).  With
+    smem_plane, each problem's whole plane stays in shared memory: R =
+    ceil((S+1)/2), so that S + 1 <= 2R (the kernel's rule), PPC lowered
+    until the block fits the 227 KB a block may use.  Where not even one
+    problem fits (S > 13669), or without smem_plane, the plane lies in
+    device memory ("smem_plane": False) and the walk reads it over staged
+    chunks of R < (S+1)/2 rows, at most 64; "plane_bytes" is the device
+    plane's size a problem (0 with the plane in shared memory)."""
+    SP = _plane_width(S)
+    ppc = _per_block(1, B, sms)
+    R = (S + 2) // 2
+    fit = ppc
+    while fit > 1 and fit * (2 * R * _RS_P + SP + 16) > SMEM_MAX:
+        fit -= 1
+    if smem_plane and fit * (2 * R * _RS_P + SP + 16) <= SMEM_MAX:
+        ppc = fit
+    else:
+        R = max(1, min(_RS_CHUNK_ROWS, S // 2))
+    in_smem = S + 1 <= 2 * R
+    return {"PPC": ppc, "R": R, "smem": ppc * (2 * R * _RS_P + SP + 16),
+            "threads": 32 * ppc, "smem_plane": in_smem,
+            "plane_bytes": 0 if in_smem else (S + 1) * _RS_P}
+
+
+def rowsync_plan_variants(S: int) -> list:
+    """P1's launch plans for S rows, by name: one problem a block and a
+    full bucket's (1 << 20 problems fill any card), each with the plane
+    in shared memory where it fits and in device memory."""
+    return [(f"{size}, {where}", rowsync_plan(S, B, smem_plane=sm))
+            for size, B in (("one a block", 1), ("full bucket", 1 << 20))
+            for where, sm in (("shared plane", True),
+                              ("device plane", False))]
+
+
+_ROWSYNC_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+_RS_KEYS = ("PPC", "R", "smem", "plane_bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def _rowsync_plan_args(S: int, B: int, sms: int) -> tuple:
+    plan = rowsync_plan(S, B, sms)
+    return tuple(plan[k] for k in _RS_KEYS)
+
+
+def _rowsync_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, plan=None):
+    """P1 on the card with rowsync_plan's plan for this bucket (or the one
+    given).  One scratch allocation: the problem counter (16 bytes), then
+    the plane [B, S+1, 16] only where the plan keeps it in device
+    memory.  The kernel writes every byte of P."""
     B, S = q.shape
     _ext.check("q", q, torch.int8, (B, S))
     _ext.check("t", t, torch.int8, (B, S))
     for name, x in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
         _ext.check(name, x, torch.int32, (B,))
     SP = _plane_width(S)
-    band = 2 * K + 1
-    scratch = torch.empty((B, S + 1, band), dtype=torch.int8,
-                          device=q.device)
     P = torch.empty((B, SP), dtype=torch.uint8, device=q.device)
     if B == 0:
         return P
+    ppc, R, smem, plane_bytes = (
+        _rowsync_plan_args(S, B, _ext.sm_count(q.device.index or 0))
+        if plan is None else tuple(plan[k] for k in _RS_KEYS))
+    scratch = torch.empty(16 + B * plane_bytes, dtype=torch.uint8,
+                          device=q.device)
     p = _ext.ptr
-    _ext.launch("banded_pallas_rowsync", "rowsync",
+    _ext.launch("banded_pallas_rowsync", "banded_global",
                 "lra_banded_pallas_rowsync", _ROWSYNC_ARGS, p(q), p(t),
-                p(qlen), p(tlen), p(kband), p(scratch), p(P), B, S, SP, K,
-                int(m), int(mm), int(indel))
+                p(qlen), p(tlen), p(kband), p(scratch) + 16, p(P),
+                p(scratch), B, S, SP, K, int(m), int(mm), int(indel), ppc,
+                R, smem)
     return P
 
 

@@ -247,10 +247,58 @@ def chain_mask_from_scores(V, bp, valid):
     return chain_mask_from_scores_plain(V, bp, valid)
 
 
-_MASK_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+_MASK_WARPS = 8         # K3's warp tier: problems a block in a full bucket
+_MASK_WARP_N = 1024     # K3: the largest N of the warp tier
+_MASK_KEYS = ("tier", "ppb", "threads", "smem")
+_MASK_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
 
 
-def _chain_mask_from_scores_cuda(V, bp, valid):
+def mask_plan(N: int, B: int | None = None, sms: int = 132,
+              tier: int | None = None) -> dict:
+    """Launch plan of csrc/chain_mask.cu (K3) for B problems of N rows on a
+    card of `sms` SMs.  Tier 0 (N <= 1024): one warp a problem, ppb of
+    them a block, 8 when the bucket gives every SM 8 warps, else B // sms
+    (at least one, B = None counts as small), so that a small bucket's
+    blocks spread over the SMs; each warp stages its problem's bp and
+    mask words in shared memory, 4 * (N + 32) bytes.  Tier 1 (N > 1024):
+    one CTA of 32 * ceil(N / 256) threads (at most 1024) a problem, bp and
+    the N / 32 words in shared memory.  `tier` forces a tier (tier 0 up
+    to N = 1024)."""
+    if N % 32 or not 0 < N <= 8192:
+        raise ValueError(f"chain_mask_from_scores kernel: needs N % 32 == 0 "
+                         f"and 0 < N <= 8192 (got N={N})")
+    if tier is None:
+        tier = 0 if N <= _MASK_WARP_N else 1
+    if tier == 0:
+        if N > _MASK_WARP_N:
+            raise ValueError(f"chain_mask_from_scores: no warp tier at "
+                             f"N={N} > {_MASK_WARP_N}")
+        ppb = min(_MASK_WARPS, max(1, (B or 0) // sms))
+        return {"tier": 0, "ppb": ppb, "threads": 32 * ppb,
+                "smem": ppb * 4 * (N + 32)}
+    return {"tier": 1, "ppb": 1, "threads": min(1024, 32 * -(-N // 256)),
+            "smem": 4 * (N + N // 32)}
+
+
+def mask_plan_variants(N: int) -> list:
+    """K3's launch plans for N rows, by name: the warp tier at one and at
+    8 problems a block (N <= 1024), and the CTA tier."""
+    out = []
+    if N <= _MASK_WARP_N:
+        out += [("warp tier, 1 a block", mask_plan(N, 1)),
+                ("warp tier, 8 a block", mask_plan(N, 1 << 20))]
+    return out + [("CTA tier", mask_plan(N, tier=1))]
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_plan_args(N: int, B: int, sms: int) -> tuple:
+    plan = mask_plan(N, B, sms)
+    return tuple(plan[k] for k in _MASK_KEYS)
+
+
+def _chain_mask_from_scores_cuda(V, bp, valid, plan=None):
+    """K3 on the card with mask_plan's plan for this bucket (or the one
+    given)."""
     B, N = V.shape
     if N % 32 or N > 8192:
         raise ValueError(f"chain_mask_from_scores kernel: needs N % 32 == 0 "
@@ -258,14 +306,20 @@ def _chain_mask_from_scores_cuda(V, bp, valid):
     _ext.check("V", V, torch.float32, (B, N))
     _ext.check("bp", bp, torch.int32, (B, N))
     _ext.check("valid", valid, torch.bool, (B, N))
+    for name, x, align in (("V", V, 16), ("bp", bp, 16), ("valid", valid, 4)):
+        if x.data_ptr() % align:
+            raise ValueError(f"chain_mask_from_scores kernel: {name} is not "
+                             f"{align}-byte aligned")
     vmax = torch.empty(B, dtype=torch.float32, device=V.device)
     bits = torch.empty((B, N // 32), dtype=torch.int32, device=V.device)
     if B == 0:
         return vmax, bits
+    args = (_mask_plan_args(N, B, _ext.sm_count(V.device.index or 0))
+            if plan is None else tuple(plan[k] for k in _MASK_KEYS))
     p = _ext.ptr
     _ext.launch("chain_mask_from_scores", "chain_mask",
                 "lra_chain_mask_from_scores", _MASK_ARGS, p(V), p(bp),
-                p(valid), p(vmax), p(bits), B, N)
+                p(valid), p(vmax), p(bits), B, N, *args)
     return vmax, bits
 
 

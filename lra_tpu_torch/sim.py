@@ -205,6 +205,55 @@ def refine_problems(rng, B: int, S: int, K: int) -> tuple:
             kb.astype(np.int32))
 
 
+def rowsync_problems(rng, B: int, S: int, K: int) -> tuple:
+    """A [B, S] bucket for P1's row walk (q, t int8; qlen, tlen, kband
+    int32): refine_problems' rows, the first ones replaced by the walk's
+    edges: the bucket's pad row; qlen 0 (DOWN along the i = 0 rail to
+    row 0); tlen 0 (one LEFT run in row 0, up to its DONE cell); a start
+    off the band on either side (|qlen - tlen| = K + 1 where S allows:
+    no row written); kband 3 < K with the end on the kband edge; q = a
+    few random bases, then t (the insertion's LEFT run reaches row 0)."""
+    q, t, qlen, tlen, kb = refine_problems(rng, B, S, K)
+    g = max(1, min(4, S // 4, K))
+    edges = [(0, 0, 0), (0, min(S, K), K), (min(S, K), 0, K),
+             (S, max(0, S - K - 1), K), (max(0, S - K - 1), S, K),
+             (S, max(0, S - min(3, K)), min(3, K)), (S, S - g, g)]
+    for r, (ql, tl, k) in enumerate(edges[:B]):
+        qlen[r], tlen[r], kb[r] = ql, tl, k
+    if B >= len(edges) and S > g:
+        r = len(edges) - 1
+        q[r] = np.concatenate([rng.integers(0, 4, g), t[r, :S - g]])
+    return q, t, qlen, tlen, kb
+
+
+def mask_problems(rng, B: int, N: int) -> tuple:
+    """K3's inputs for B problems of N rows (V f32, bp int32, valid bool,
+    each [B, N]): scores of small integers (many ties), backpointers to
+    an earlier row or -1, a valid prefix a problem.  The first rows are
+    the edges: no valid row; vmax < 0; vmax = 0 (no walk); vmax at
+    several rows (the first wins); one chain of all N rows (bp[i] =
+    i - 1, the best row last)."""
+    V = rng.integers(-20, 60, (B, N)).astype(np.float32)
+    bp = (np.floor(rng.random((B, N)) * np.arange(1, N + 1)) - 1
+          ).astype(np.int32)
+    valid = np.arange(N)[None, :] < rng.integers(1, N + 1, B)[:, None]
+    if B > 0:               # no valid row
+        valid[0] = False
+    if B > 1:               # vmax < 0
+        V[1] = -5.0
+    if B > 2:               # vmax = 0 (row 0 is valid): no walk
+        V[2] = np.minimum(V[2], 0.0)
+        V[2, 0] = 0.0
+    if B > 3:               # vmax at several rows
+        valid[3] = True
+        V[3, rng.choice(N, min(N, 5), replace=False)] = V[3].max() + 1.0
+    if B > 4:               # one chain of all N rows
+        V[4] = np.arange(N)
+        bp[4] = np.arange(-1, N - 1)
+        valid[4] = True
+    return V, bp, valid
+
+
 def _repeat_codes(rng, n: int) -> np.ndarray:
     """n codes of homopolymer runs (2-8 bases) and short tandem repeats
     (units of 2-3 bases of one alphabet pair, 2-5 copies)."""

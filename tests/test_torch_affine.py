@@ -14,6 +14,7 @@ from lra_tpu.utils import pow2_at_least
 from lra_tpu_torch.ops import affine_kernel as tak
 from lra_tpu_torch.ops import affine_pallas as tap
 from lra_tpu_torch.ops import one_gap as tog
+from lra_tpu_torch.sim import rowsync_problems
 
 torch.set_num_threads(2)
 M, MM, IND = 4, -3, -4
@@ -160,6 +161,27 @@ def test_rowsync_plain_matches_pallas_interpret():
     got = tap.banded_pallas_rowsync(*as_t((q, t, ql, tl)), K, M, MM, IND,
                                     kband=torch.from_numpy(kb)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_rowsync_plain_matches_pallas_interpret_edges():
+    """The row walk's edge problems (sim.rowsync_problems: the pad row,
+    qlen 0, tlen 0, starts off the band on either side, kband 3 < K, an
+    insertion whose LEFT run reaches row 0): the plain twin's P plane ==
+    the Pallas kernel's in interpret mode, at the shape of the test
+    above (one compile)."""
+    B, S, K = 8, 16, 15
+    q, t, ql, tl, kb = rowsync_problems(np.random.default_rng(11), B, S, K)
+    assert (ql == 0).any() and (tl == 0).any() and (kb < K).any()
+    assert (np.abs(ql - tl) > K).sum() == 2
+    want = np.asarray(jap.banded_pallas_rowsync(
+        *as_j((q, t, ql, tl)), K, M, MM, IND, kband=jnp.asarray(kb),
+        interpret=True))
+    got = tap.banded_pallas_rowsync(*as_t((q, t, ql, tl)), K, M, MM, IND,
+                                    kband=torch.from_numpy(kb)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # no row written where the walk starts off the band; a row-0 run
+    assert not want[np.abs(ql - tl) > K].any()
+    assert ((want[:, 0] >> 2) > 1).any()
 
 
 def test_rowsync_plain_blocks_match_jax_banded_global():

@@ -24,8 +24,9 @@ from lra_tpu_torch.ops import sdp_blocked as sb
 from lra_tpu_torch.ops import sdp_windowed as sw
 from lra_tpu_torch.ops.gapcost import from_options
 from lra_tpu_torch.ops import _ext
-from lra_tpu_torch.sim import (contig_chain_arrays, one_gap_problems,
-                               refine_problems, sdp_bucket,
+from lra_tpu_torch.sim import (contig_chain_arrays, mask_problems,
+                               one_gap_problems, refine_problems,
+                               rowsync_problems, sdp_bucket,
                                tie_dense_chain_arrays)
 
 torch.set_num_threads(2)
@@ -199,7 +200,8 @@ def test_global_kernel_edges_match_plain(cuda_device, B, S, K):
     ("rowsync", 16, 64, 30), ("rowsync", 8, 512, 30)])
 def test_banded_kernels_match_plain(cuda_device, kernel, B, S, K):
     """K4 ("global") at every K tier and off-tier K, also with each of
-    its two launch plans forced; K5 and the row-sync kernel (P1)."""
+    its two launch plans forced; K5; the row-sync kernel (P1), also with
+    every plan of ap.rowsync_plan_variants forced."""
     q, t, ql, tl, kb = gap_batch(np.random.default_rng(S + K), B, S, K,
                                  cuda_device)
     fn, plain = {
@@ -219,6 +221,43 @@ def test_banded_kernels_match_plain(cuda_device, kernel, B, S, K):
                                   plan=plan)
             torch.cuda.synchronize()
             assert torch.equal(got, ref), plan
+    if kernel == "rowsync":
+        for _, plan in ap.rowsync_plan_variants(S):
+            got = ap._rowsync_cuda(q, t, ql, tl, kb, K, M, MM, IND,
+                                   plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K", [
+    (13, 16, 30), (1056, 16, 30), (13, 32, 30), (2048, 32, 30),
+    (13, 64, 15), (13, 64, 31), (9, 512, 30), (7, 2048, 30),
+    (8, 14528, 30)])
+def test_rowsync_kernel_plans_match_plain(cuda_device, B, S, K):
+    """P1 on sim.rowsync_problems (qlen 0, tlen 0, starts off the band on
+    either side, kband < K, an insertion whose run reaches row 0) at S
+    16-2048, K 15-31 (band 63), B across the edge of 8 problems a block
+    and past it, and S = 14528 where no problem fits a block, through the
+    wrapper and with every plan forced: P equal to the plain twin's byte
+    for byte, its decoded blocks equal to K4's."""
+    q, t, ql, tl, kb = [torch.from_numpy(a).to(cuda_device) for a in
+                        rowsync_problems(np.random.default_rng(S + K), B, S,
+                                         K)]
+    ref = ap.banded_pallas_rowsync_plain(q, t, ql, tl, K, M, MM, IND, kb)
+    got = ap.banded_pallas_rowsync(q, t, ql, tl, K, M, MM, IND, kband=kb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert ap.rowsync_plan(S, B)["smem_plane"] == (S <= 13669)
+    for _, plan in ap.rowsync_plan_variants(S):
+        out = ap._rowsync_cuda(q, t, ql, tl, kb, K, M, MM, IND, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), plan
+    ops = ak.banded_global_traced_packed(q, t, ql, tl, K, M, MM, IND,
+                                         kband=kb)
+    assert ap.blocks_from_rowsync(got.cpu().numpy(), ql.cpu().numpy(),
+                                  tl.cpu().numpy(), S) == \
+        ak.blocks_from_ops_batch(ak.unpack_ops(ops.cpu().numpy()))
 
 
 def one_gap_batch(rng, B, K, D, query_longer, max_gap, dev):
@@ -433,14 +472,28 @@ def chain_mask_batch(rng, B, N, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N", [(8, 64), (4, 4096)])
-def test_chain_mask_kernel_matches_plain(cuda_device, B, N):
-    args = chain_mask_batch(np.random.default_rng(N), B, N, cuda_device)
-    got = sb.chain_mask_from_scores(*args)
+@pytest.mark.parametrize("B,N,kind", [
+    (8, 64, "ties"), (4, 4096, "ties"), (13, 64, "edges"),
+    (1056, 64, "edges"), (13, 1024, "edges"), (13, 2048, "edges"),
+    (5, 8192, "edges")])
+def test_chain_mask_kernel_matches_plain(cuda_device, B, N, kind):
+    """K3 on tie-dense scores, and on sim.mask_problems' edges (no valid
+    row, vmax < 0, vmax = 0, ties for vmax, a chain of all N rows) at
+    both tiers and B across the warp tier's 8 problems a block, through
+    the wrapper and with every plan forced."""
+    rng = np.random.default_rng(N)
+    args = (chain_mask_batch(rng, B, N, cuda_device) if kind == "ties"
+            else [torch.from_numpy(a).to(cuda_device)
+                  for a in mask_problems(rng, B, N)])
     ref = sb.chain_mask_from_scores_plain(*args)
+    runs = [sb.chain_mask_from_scores(*args)] + \
+        [sb._chain_mask_from_scores_cuda(*args, plan=plan)
+         for _, plan in sb.mask_plan_variants(N)]
     torch.cuda.synchronize()
-    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
-    assert torch.equal(got[1], ref[1])
+    for got in runs:
+        assert torch.equal(got[0].view(torch.int32),
+                           ref[0].view(torch.int32))
+        assert torch.equal(got[1], ref[1])
     assert bool((ref[1][1:] != 0).any())
 
 

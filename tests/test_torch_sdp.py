@@ -13,7 +13,8 @@ from lra_tpu.ops import sdp_blocked as jsdp
 from lra_tpu.ops.gapcost import from_options
 from lra_tpu_torch.chain import driver as tdriver
 from lra_tpu_torch.ops import sdp_blocked as tsdp
-from lra_tpu_torch.sim import contig_chain_arrays, tie_dense_chain_arrays
+from lra_tpu_torch.sim import (contig_chain_arrays, mask_problems,
+                               tie_dense_chain_arrays)
 
 torch.set_num_threads(2)
 
@@ -75,6 +76,20 @@ def test_chain_scores_blocked_and_mask_plain_match_jax(key, B, N, seed):
         torch.from_numpy(args[7]))]
     np.testing.assert_array_equal(tvmax.view(np.int32), vmax.view(np.int32))
     np.testing.assert_array_equal(tbits, bits)
+
+
+def test_chain_mask_plain_matches_jax_edges():
+    """K3's edge problems (sim.mask_problems: no valid row, vmax < 0,
+    vmax = 0, ties for vmax, a chain of all N rows): the plain twin's
+    vmax and bit words == lra_tpu's."""
+    V, bp, valid = mask_problems(np.random.default_rng(4), 6, 64)
+    vmax, bits = [np.asarray(x) for x in jsdp.chain_mask_from_scores(
+        jnp.asarray(V), jnp.asarray(bp), jnp.asarray(valid))]
+    tvmax, tbits = [x.numpy() for x in tsdp.chain_mask_from_scores(
+        *(torch.from_numpy(a) for a in (V, bp, valid)))]
+    np.testing.assert_array_equal(tvmax.view(np.int32), vmax.view(np.int32))
+    np.testing.assert_array_equal(tbits, bits)
+    assert (bits[:3] == 0).all() and (bits[4] == -1).all()
 
 
 def rand_problems(mod, seed, sizes, need_full):

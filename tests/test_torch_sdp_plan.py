@@ -70,3 +70,35 @@ def test_sdp_bucket_edges_plain():
         assert bool((V[b] == np.float32(sb.NEG)).all())
         assert bool((bp[b] == -1).all()) and bool((lane[b] == 0).all())
     assert bool((lane == 2).any()) and bool((lane == 1).any())
+
+
+@pytest.mark.parametrize("N", driver._BUCKETS)
+@pytest.mark.parametrize("B", [None, 1, 256, 1055, 1056, 65536])
+def test_mask_plan_covers_every_bucket(N, B):
+    """K3's plan (sb.mask_plan) for every N bucket: a warp a problem up
+    to N = 1024, 8 a block once the bucket gives every SM 8 warps, else
+    B // sms (at least one); a CTA a problem above, 8 rows a thread; the
+    shared memory the kernel carves (bp and the mask words) within the
+    48 KB a block gets without an opt-in."""
+    p = sb.mask_plan(N, B, sms=132)
+    assert p["threads"] % 32 == 0 and 32 <= p["threads"] <= 1024, p
+    assert p["smem"] <= 48 * 1024, p
+    if N <= 1024:
+        assert p["tier"] == 0 and p["threads"] == 32 * p["ppb"], p
+        assert p["ppb"] == min(8, max(1, (B or 0) // 132)), p
+        assert p["smem"] == p["ppb"] * 4 * (N + 32), p
+    else:
+        assert p["tier"] == 1 and p["ppb"] == 1, p
+        assert p["threads"] == min(1024, N // 8), p
+        assert p["smem"] == 4 * (N + N // 32), p
+    names = [n for n, _ in sb.mask_plan_variants(N)]
+    assert names[-1] == "CTA tier" and len(names) == (3 if N <= 1024 else 1)
+    for _, v in sb.mask_plan_variants(N):
+        assert v["smem"] <= 48 * 1024 and v["threads"] <= 1024, v
+
+
+@pytest.mark.parametrize("N,tier", [(0, None), (48, None), (8224, None),
+                                    (16384, None), (2048, 0)])
+def test_mask_plan_refuses(N, tier):
+    with pytest.raises(ValueError):
+        sb.mask_plan(N, 8, tier=tier)

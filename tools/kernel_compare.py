@@ -6,11 +6,16 @@ inputs chip_smoke.py recorded:
     python3 tools/kernel_compare.py k2 PATH OTHER_TREE...
     python3 tools/kernel_compare.py k4 PATH OTHER_TREE...
     python3 tools/kernel_compare.py k6 PATH OTHER_TREE...
+    python3 tools/kernel_compare.py p1 PATH OTHER_TREE...   # --save-p1
+    python3 tools/kernel_compare.py k3 PATH OTHER_TREE...   # --save-k3
 
 KERNEL is k2 (chain_scores_blocked, csrc/sdp_blocked.cu), k4
-(banded_global_traced_packed, csrc/banded_global.cu) or k6
-(one_gap_traced, csrc/one_gap.cu; every recorded launch of each path,
-with the device time of a path's launches summed at the end).  Each OTHER_TREE
+(banded_global_traced_packed, csrc/banded_global.cu), k6
+(one_gap_traced, csrc/one_gap.cu), p1 (banded_pallas_rowsync, the
+rowsync_kernel of csrc/banded_global.cu, or an earlier tree's
+csrc/rowsync.cu) or k3 (chain_mask_from_scores, csrc/chain_mask.cu);
+k6, p1 and k3 take every recorded launch of each path, with the device
+time of a path's launches summed at the end.  Each OTHER_TREE
 is an unpacked `git archive` of a commit (or a copy of this tree with
 another source).  Its source is built with nvcc into
 OTHER_TREE/_<kernel>_build/ and called through ctypes: the
@@ -66,9 +71,18 @@ def nvcc_build(src: str, out_dir: str, lib: str, patch=None) -> str:
     return so
 
 
+def source(spec, tree: str) -> tuple:
+    """(source file, library name) of a kernel in a tree."""
+    if hasattr(spec, "source"):
+        return spec.source(tree)
+    return os.path.join(tree, "lra_tpu_torch", "csrc", spec.src), spec.lib
+
+
 def is_planned(spec, src: str) -> bool:
     """Whether a kernel source has the planned entry point (the one that
     takes a launch plan) or the one-CTA-per-problem one."""
+    if hasattr(spec, "planned"):
+        return spec.planned(src)
     return spec.planned_mark in open(src).read()
 
 
@@ -311,7 +325,166 @@ class K6:
                                        self.mm, self.indel, self.L)
 
 
-KERNELS = {"k2": K2, "k4": K4, "k6": K6}
+class P1:
+    """banded_pallas_rowsync; inputs (q, t, qlen, tlen, K, m, mm, indel)
+    and kband.  chip_smoke.py --save-p1 saves every P1 launch of each
+    path.  An earlier tree's P1 is csrc/rowsync.cu (one CTA a problem,
+    an int8 arrow plane in device memory) where it has one, else the
+    rowsync_kernel of its csrc/banded_global.cu."""
+
+    lib, src = "banded_global", "banded_global.cu"
+    patches: dict = {}
+
+    @staticmethod
+    def source(tree: str) -> tuple:
+        old = os.path.join(tree, "lra_tpu_torch", "csrc", "rowsync.cu")
+        if os.path.exists(old):
+            return old, "rowsync"
+        return (os.path.join(tree, "lra_tpu_torch", "csrc", P1.src),
+                P1.lib)
+
+    @staticmethod
+    def planned(src: str) -> bool:
+        return not src.endswith("rowsync.cu")
+
+    def __init__(self, args, kw):
+        self.q, self.t, self.qlen, self.tlen = [a.cuda() for a in args[:4]]
+        self.K, self.m, self.mm, self.indel = args[4:8]
+        self.kband = kw["kband"].cuda()
+
+    def plan(self) -> dict:
+        from lra_tpu_torch.ops import _ext
+        from lra_tpu_torch.ops import affine_pallas as ap
+
+        return ap.rowsync_plan(self.q.shape[1], self.q.shape[0],
+                               _ext.sm_count(0))
+
+    def shape(self) -> str:
+        B, S = self.q.shape
+        return (f"B={B} S={S} K={self.K}; PPC {{PPC}} R {{R}} smem "
+                f"{{smem}}, plane in shared memory: {{smem_plane}}"
+                ).format(**self.plan())
+
+    @staticmethod
+    def entry(so: str, planned: bool):
+        fn = ctypes.CDLL(so).lra_banded_pallas_rowsync
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       if planned else
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7) + \
+            [ctypes.c_void_p]
+        return fn
+
+    def runner(self, fn, planned):
+        import torch
+
+        from lra_tpu_torch.ops import affine_pallas as ap
+
+        q, K = self.q, self.K
+        B, S = q.shape
+        SP = ap._plane_width(S)
+        plan = self.plan()
+        scratch = torch.empty(16 + B * plan["plane_bytes"] if planned
+                              else B * (S + 1) * (2 * K + 1),
+                              dtype=torch.uint8, device="cuda")
+        head = [x.data_ptr() for x in (q, self.t, self.qlen, self.tlen,
+                                       self.kband)]
+        consts = [B, S, SP, K, self.m, self.mm, self.indel]
+
+        def run():
+            P = torch.empty((B, SP), dtype=torch.uint8, device="cuda")
+            if planned:
+                args = head + [scratch.data_ptr() + 16, P.data_ptr(),
+                               scratch.data_ptr()] + consts + \
+                    [plan["PPC"], plan["R"], plan["smem"]]
+            else:
+                args = head + [scratch.data_ptr(), P.data_ptr()] + consts
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"P1: CUDA launch failed ({rc})")
+            return P
+        return run
+
+    def wrapper(self):
+        from lra_tpu_torch.ops import affine_pallas as ap
+
+        return ap.banded_pallas_rowsync(
+            self.q, self.t, self.qlen, self.tlen, self.K, self.m, self.mm,
+            self.indel, kband=self.kband)
+
+    def plain(self):
+        from lra_tpu_torch.ops import affine_pallas as ap
+
+        return ap.banded_pallas_rowsync_plain(
+            self.q, self.t, self.qlen, self.tlen, self.K, self.m, self.mm,
+            self.indel, self.kband)
+
+
+class K3:
+    """chain_mask_from_scores; inputs (V, bp, valid).  chip_smoke.py
+    --save-k3 saves every K3 launch of each path."""
+
+    lib, src = "chain_mask", "chain_mask.cu"
+    planned_mark = "int ppb"        # the planned entry point's
+    outs = ("vmax", "bits")
+    patches: dict = {}
+
+    def __init__(self, args, kw):
+        self.args = [a.cuda() for a in args[:3]]
+
+    def plan(self) -> dict:
+        from lra_tpu_torch.ops import _ext
+        from lra_tpu_torch.ops import sdp_blocked as sb
+
+        B, N = self.args[0].shape
+        return sb.mask_plan(N, B, _ext.sm_count(0))
+
+    def shape(self) -> str:
+        B, N = self.args[0].shape
+        return (f"B={B} N={N}; tier {{tier}}, {{ppb}} a block, {{threads}} "
+                f"threads, smem {{smem}}").format(**self.plan())
+
+    @staticmethod
+    def entry(so: str, planned: bool):
+        fn = ctypes.CDLL(so).lra_chain_mask_from_scores
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * (6 if planned else 2) + [ctypes.c_void_p]
+        return fn
+
+    def runner(self, fn, planned):
+        import torch
+
+        B, N = self.args[0].shape
+        plan = self.plan()
+        head = [x.data_ptr() for x in self.args]
+
+        def run():
+            out = [torch.empty(B, dtype=torch.float32, device="cuda"),
+                   torch.empty((B, N // 32), dtype=torch.int32,
+                               device="cuda")]
+            args = head + [x.data_ptr() for x in out] + [B, N]
+            if planned:
+                args += [plan[k] for k in ("tier", "ppb", "threads",
+                                           "smem")]
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"K3: CUDA launch failed ({rc})")
+            return out
+        return run
+
+    def wrapper(self):
+        from lra_tpu_torch.ops import sdp_blocked as sb
+
+        return sb.chain_mask_from_scores(*self.args)
+
+    def plain(self):
+        from lra_tpu_torch.ops import sdp_blocked as sb
+
+        return sb.chain_mask_from_scores_plain(*self.args)
+
+
+KERNELS = {"k2": K2, "k4": K4, "k6": K6, "p1": P1, "k3": K3}
 PLAN_KEYS = ("tier", "threads", "smem")     # K2's planned entry point
 
 
@@ -364,10 +537,10 @@ def main() -> int:
     _ext.build_all()
     built = []      # (tree, entry point, planned?)
     for tr in [ROOT] + argv[2:]:
-        src = os.path.join(tr, "lra_tpu_torch", "csrc", spec.src)
-        so = (os.path.join(_ext.BUILD_DIR, f"lib{spec.lib}.so") if tr == ROOT
+        src, lib = source(spec, tr)
+        so = (os.path.join(_ext.BUILD_DIR, f"lib{lib}.so") if tr == ROOT
               else nvcc_build(src, os.path.join(tr, f"_{argv[0]}_build"),
-                              spec.lib))
+                              lib))
         planned = is_planned(spec, src)
         built.append(("this" if tr == ROOT else tr,
                       spec.entry(so, planned), planned))
@@ -376,10 +549,10 @@ def main() -> int:
         for tr, _, planned in built[1:]:
             if planned:
                 continue
-            src = os.path.join(tr, "lra_tpu_torch", "csrc", spec.src)
+            src, lib = source(spec, tr)
             for k, (name, patch) in enumerate(spec.patches.items()):
                 so = nvcc_build(src, os.path.join(tr, f"_{argv[0]}_cut{k}"),
-                                spec.lib, patch)
+                                lib, patch)
                 cut.append((f"{tr} {name}", spec.entry(so, False)))
     cs.log(cs.smi_line())
     sums: dict = {}     # path: [device ms summed over its launches, per tree]
