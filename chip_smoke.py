@@ -75,12 +75,31 @@ failure.  Phases:
    first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
    genome with the port's buckets cut to (64,) and SHARD_N to 2048 for
    that call, so that K7 and the shard rounds lie on the compared path;
-7. one more run each of CCS in both configurations, ONT, CLR and CONTIG
-   (b) under torch.profiler: the device's busy share and the device time
-   and launches of the hand kernels against all other kernels.
+7. the -t N stream: CCS (default configuration), ONT and CLR at their
+   full sizes through align_stream(..., device="cuda") in batches of 64
+   reads at 1, 2 and 4 workers, each batch awaited with a time limit:
+   SAM lines byte-equal to phase 3's, launches per kernel equal to the
+   sequential run's, and at 2 and 4 workers every launch on its worker's
+   own non-default stream (a wrapper of ops/_ext.launch records them),
+   two streams at least; reads/s at each worker count;
+8. device-round statistics (utils/devstats.py on): one warm batch each
+   of CCS, ONT and CLR, the pack / compute / copy / post split of every
+   round, the host time inside the kernel launches, launches per round;
+9. the command line, `python -m lra_tpu_torch.cli` in a temporary
+   directory on the 2 Mb genome and 64 CCS reads: `index`, `align -t 4`
+   (records = align_reads' lines), two `align --nproc 2` processes
+   sharing the card and `merge` (= the single run but @PG), `-p p` and
+   `-p b` (= align_reads' lines), `qti`;
+10. one more run each of CCS in both configurations, ONT, CLR and
+   CONTIG (b), and of CCS, ONT and CLR through the stream at 4 workers,
+   under torch.profiler: the device's busy share and the device time and
+   launches of the hand kernels against all other kernels.
 
-The line before the last is the kernels JSON object; the last line is
-{"ok": true, "device": {...}}.
+Also: lra_tpu_torch.native.available(); the full CCS use_pallas run's
+SAM lines equal to the full CCS default run's; a JSON line
+{"sam_sha256": {path: SHA-256 of its full SAM lines}} before the card's
+name.  The line before the last is the kernels JSON object; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1564,6 +1583,309 @@ def contig_parity(work) -> None:
         f"the cuda run {k7} (cpu run {t1 - t0:.1f} s)")
 
 
+# -t N: reads a batch in the stream phase (the CLI's --batch default), the
+# worker counts, and how long one batch may take before the phase fails
+STREAM_BATCH = 64
+STREAM_WORKERS = (1, 2, 4)
+STREAM_TIMEOUT = 300.0
+STREAM_SWITCH = 0.0005      # the GIL probe's switch interval, seconds
+
+
+def stream_batches(work, kind) -> list:
+    """A workload's reads in batches of STREAM_BATCH."""
+    reads = [r for b in work[kind][1] for r in b]
+    return [reads[i:i + STREAM_BATCH]
+            for i in range(0, len(reads), STREAM_BATCH)]
+
+
+def drain(gen, timeout) -> list:
+    """Every item of the generator gen (align_stream's), consumed on a
+    daemon thread; raises if one item takes longer than timeout seconds
+    (a hang across streams fails the phase instead of the run's limit)
+    or if the generator raised."""
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue()
+
+    def run():
+        try:
+            for item in gen:
+                q.put((True, item))
+            q.put((True, None))
+        except BaseException as e:      # handed to the main thread
+            q.put((False, e))
+
+    threading.Thread(target=run, daemon=True).start()
+    out = []
+    while True:
+        try:
+            ok, item = q.get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"align_stream: no batch finished within "
+                                 f"{timeout:.0f} s") from None
+        if not ok:
+            raise item
+        if item is None:
+            return out
+        out.append(item)
+
+
+class StreamSpy:
+    """Wraps ops/_ext.launch: the calling thread and the CUDA stream of
+    every launch (inside the with block)."""
+
+    def __enter__(self):
+        import threading
+
+        import torch
+
+        from lra_tpu_torch.ops import _ext
+
+        self.calls: list = []
+        self.orig = _ext.launch
+        lock = threading.Lock()
+
+        def spy(*args):
+            h = torch.cuda.current_stream().cuda_stream
+            with lock:
+                self.calls.append((threading.current_thread().name, h))
+            return self.orig(*args)
+
+        _ext.launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        from lra_tpu_torch.ops import _ext
+
+        _ext.launch = self.orig
+        return False
+
+
+def stream_phase(work, all_lines) -> dict:
+    """align_stream on the card at workers 1, 2 and 4 for CCS (default
+    configuration), ONT and CLR at their full sizes in batches of
+    STREAM_BATCH reads: SAM lines byte-equal to the e2e run's, launch
+    counts per kernel equal to the sequential (workers 1) run's, and at
+    workers > 1 every launch on a worker's own non-default stream, at
+    least two streams.  Returns {path: {workers: reads/s}}."""
+    import torch
+
+    from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.pipeline.stream import align_stream
+    from lra_tpu_torch.utils.timing import Timing
+
+    default = torch.cuda.default_stream().cuda_stream
+    switch = sys.getswitchinterval()
+    rates: dict = {}
+    for label, kind in (("ccs", "ccs"), ("ont", "ont"), ("clr", "clr")):
+        genome, _, idx, opts, gli = work[kind]
+        opts.use_pallas = False
+        batches = stream_batches(work, kind)
+        n = sum(len(b) for b in batches)
+        seq_counts = seq_stages = None
+        # the worker counts, then 4 workers again with the interpreter's
+        # switch interval cut to STREAM_SWITCH s (a probe of the GIL)
+        for run in (*STREAM_WORKERS, "probe"):
+            probe = run == "probe"
+            workers = 4 if probe else run
+            name = (f"4, switch interval {STREAM_SWITCH * 1e3:g} ms"
+                    if probe else workers)
+            if probe:
+                sys.setswitchinterval(STREAM_SWITCH)
+            _ext.reset_launches()
+            torch.cuda.synchronize()
+            tm = Timing()
+            try:
+                with StreamSpy() as spy:
+                    t0 = time.perf_counter()
+                    out = drain(align_stream(batches, genome, idx, opts,
+                                             genome_li=gli, timing=tm,
+                                             workers=workers, device=DEV),
+                                STREAM_TIMEOUT)
+                    dt = time.perf_counter() - t0
+            finally:
+                sys.setswitchinterval(switch)
+            torch.cuda.synchronize()
+            counts = dict(_ext.LAUNCHES)
+            lines = [ln for _, ls in out for ln in ls]
+            if lines != all_lines[label]:
+                raise AssertionError(f"stream [{label}] workers {name}: "
+                                     "SAM lines != the e2e run's")
+            if seq_counts is None:
+                seq_counts = counts
+            elif counts != seq_counts:
+                raise AssertionError(f"stream [{label}] workers {name}: "
+                                     f"launches {counts} != the sequential "
+                                     f"run's {seq_counts}")
+            by_thread: dict = {}
+            for thread, h in spy.calls:
+                by_thread.setdefault(thread, set()).add(h)
+            handles = {h for _, h in spy.calls}
+            if workers > 1 and (default in handles or len(handles) < 2 or
+                                any(len(v) != 1 for v in
+                                    by_thread.values())):
+                raise AssertionError(
+                    f"stream [{label}] workers {name}: launches by thread "
+                    f"and stream {by_thread} (default stream {default}): "
+                    "not one non-default stream a worker, two at least")
+            rates.setdefault(label, {})[name] = n / dt
+            stage = sum(tm.totals.values())
+            log(f"stream [{label}] workers {name}: {n / dt:.2f} reads/s "
+                f"({dt:.3f} s for {n} reads in {len(batches)} batches of "
+                f"{STREAM_BATCH}), SAM lines = e2e, launches "
+                f"{sum(counts.values())} = sequential, {len(spy.calls)} "
+                f"launches on {len(handles)} stream(s) from "
+                f"{len(by_thread)} thread(s); stage time summed over the "
+                f"batches {stage:.3f} s = {stage / dt:.2f} x wall")
+            if seq_stages is None:
+                seq_stages = dict(tm.totals)
+            else:
+                log("  stage time / workers 1: " + ", ".join(
+                    f"{k} {v:.3f} s ({v / max(seq_stages.get(k, 0), 1e-9):.2f}"
+                    "x)" for k, v in tm.totals.items()))
+    return rates
+
+
+def devstats_phase(work) -> None:
+    """One warm batch each of CCS, ONT and CLR with the device-round
+    statistics on: pack, compute, copy and post time per round, and pack
+    split into the host jobs, the kernels' launch calls and the rest."""
+    import io
+
+    from lra_tpu_torch.utils import devstats
+
+    devstats.ENABLED = True
+    try:
+        for label, kind in (("ccs", "ccs"), ("ont", "ont"), ("clr", "clr")):
+            genome, batches, idx, opts, gli = work[kind]
+            opts.use_pallas = False
+            devstats.reset()
+            t0 = time.perf_counter()
+            align_all(batches[:1], genome, idx, opts, gli, DEV)
+            wall = time.perf_counter() - t0
+            buf = io.StringIO()
+            agg = devstats.report(buf)
+            log(f"devstats [{label}] one batch of {len(batches[0])} reads, "
+                f"wall {wall:.3f} s:")
+            for ln in buf.getvalue().splitlines():
+                log(f"  {ln}")
+            for tag, a in agg.items():
+                log(f"  {tag}: pack {a['pack_s']:.4f} s = host jobs "
+                    f"{a['host_s']:.4f} s + {a['launches']} launch calls "
+                    f"{a['launch_s']:.4f} s + packing and copies in "
+                    f"{a['pack_s'] - a['host_s'] - a['launch_s']:.4f} s; "
+                    f"device time of the launches {a['compute_s']:.4f} s")
+                if a["launches"] and not a["compute_s"] > 0:
+                    raise AssertionError(f"devstats [{label}] {tag}: no "
+                                         "device time read")
+    finally:
+        devstats.ENABLED = False
+        devstats.reset()
+
+
+def cli_phase(work) -> None:
+    """The command line in a temporary directory, on the card: `index`,
+    then `align -t 4` (its records = the in-process align_reads lines of
+    the same 64 CCS reads), two `align --nproc 2` processes at once
+    sharing the card, then `merge` (= the single run but @PG), `-p p`
+    and `-p b` (= align_reads' PAF and BED lines), and `qti`."""
+    import tempfile
+
+    from lra_tpu_torch import preset
+    from lra_tpu_torch import seq as sequtils
+
+    genome, batches, idx, opts, _ = work["ccs"]
+    reads = batches[0][:64]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def cli(d, *args, timeout=600) -> str:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "lra_tpu_torch.cli",
+                              *args], cwd=d, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+        if out.returncode != 0:
+            raise AssertionError(f"cli {' '.join(args)}: rc "
+                                 f"{out.returncode}\n{out.stderr[-2000:]}")
+        log(f"cli {' '.join(args)}: {time.perf_counter() - t0:.1f} s; "
+            f"{(out.stderr.strip().splitlines() or [''])[-1][:150]}")
+        return out.stderr
+
+    def records(path) -> list:
+        return [ln.rstrip("\n") for ln in open(path)
+                if not ln.startswith("@")]
+
+    def in_process(fmt) -> list:
+        o = preset("ccs")
+        o.print_format = fmt
+        return align_all([reads], genome, idx, o, None, DEV)[1]
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "ref.fa"), "w") as f:
+            f.write(">chr1\n" + sequtils.decode(genome.codes) + "\n")
+        with open(os.path.join(d, "reads.fa"), "w") as f:
+            for name, codes in reads:
+                f.write(f">{name}\n{sequtils.decode(codes)}\n")
+        cli(d, "index", "ref.fa", "-CCS")
+        cli(d, "align", "-CCS", "ref.fa", "reads.fa", "-t", "4", "--batch",
+            "16", "-o", "t4.sam")
+        want = in_process("s")
+        if records(os.path.join(d, "t4.sam")) != want:
+            raise AssertionError("cli align -t 4: records != align_reads "
+                                 "lines")
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for pid in (0, 1):
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "lra_tpu_torch.cli", "align",
+                     "-CCS", "ref.fa", "reads.fa", "--batch", "16",
+                     "--nproc", "2", "--procid", str(pid), "-o",
+                     "multi.sam"], cwd=d, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+            for pid, p in enumerate(procs):
+                _, err = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"cli align --procid {pid}: rc "
+                                         f"{p.returncode}\n{err[-2000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        log(f"cli align --nproc 2 (two processes on the card at once): "
+            f"{time.perf_counter() - t0:.1f} s")
+        cli(d, "merge", "multi.sam.shard0", "multi.sam.shard1", "-o",
+            "merged.sam")
+
+        def no_pg(name) -> list:
+            return [ln for ln in open(os.path.join(d, name))
+                    if not ln.startswith("@PG")]
+
+        if no_pg("merged.sam") != no_pg("t4.sam"):
+            raise AssertionError("cli merge of the --nproc 2 shards != the "
+                                 "single run (modulo @PG)")
+        for fmt in ("p", "b"):
+            cli(d, "align", "-CCS", "ref.fa", "reads.fa", "-p", fmt, "-o",
+                f"out.{fmt}")
+            if records(os.path.join(d, f"out.{fmt}")) != in_process(fmt):
+                raise AssertionError(f"cli align -p {fmt}: lines != "
+                                     "align_reads'")
+        cli(d, "qti", "-CCS", "ref.fa", "reads.fa")
+    log(f"cli: {len(want)} SAM records of {len(reads)} reads = align_reads; "
+        "--nproc 2 merged = single run; -p p, -p b = align_reads")
+
+
+def sam_sha256(all_lines) -> dict:
+    """SHA-256 of each path's full SAM lines (newline-terminated)."""
+    import hashlib
+
+    return {label: hashlib.sha256("".join(ln + "\n" for ln in lines)
+                                  .encode()).hexdigest()
+            for label, lines in all_lines.items()}
+
+
 HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
         "chain_mask_warp_kernel", "chain_mask_cta_kernel",
         "banded_global_kernel",
@@ -1572,18 +1894,30 @@ HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
         "sdp_windowed_kernel")
 
 
-def profile_phase(work, label) -> None:
-    """Device time by kernel name over one run of a path."""
+def profile_phase(work, label, workers=0) -> None:
+    """Device time by kernel name over one run of a path (with workers,
+    through align_stream at that many workers, in batches of
+    STREAM_BATCH)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from lra_tpu_torch.pipeline.stream import align_stream
 
     _, kind, use_pallas, _ = next(p for p in PATHS if p[0] == label)
     genome, batches, idx, opts, gli = work[kind]
     opts.use_pallas = use_pallas
+    if workers:
+        batches = stream_batches(work, kind)
+        label = f"{label}, stream workers {workers}"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        align_all(batches, genome, idx, opts, gli, DEV)
+        if workers:
+            drain(align_stream(batches, genome, idx, opts, genome_li=gli,
+                               workers=workers, device=DEV),
+                  STREAM_TIMEOUT)
+        else:
+            align_all(batches, genome, idx, opts, gli, DEV)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -1641,6 +1975,10 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln:
                     log(f"  ptxas {n}: {ln.strip()[:150]}")
 
+    from lra_tpu_torch import native
+
+    log(f"native host library (lra_tpu_torch.native.available()): "
+        f"{native.available()}")
     t0 = time.perf_counter()
     kernel_phase(torch.device("cuda"))
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
@@ -1655,6 +1993,12 @@ def main() -> int:
     mixes: dict = {}
     all_lines, launches = e2e_phase(work, rec, mixes)
     log(f"[{time.perf_counter() - T0:.0f} s] e2e paths done")
+    if all_lines["ccs use_pallas=True"] != all_lines["ccs"]:
+        raise AssertionError("CCS: the use_pallas=True run's SAM lines != "
+                             "the default run's")
+    log(f"CCS use_pallas=True = CCS default: {len(all_lines['ccs'])} SAM "
+        "lines byte-equal")
+    sha = sam_sha256(all_lines)
     chain_mask_phase(mixes["ccs use_pallas=True"].sdp2, work["ccs"][3], rec,
                      launches)
     rows = main_path_kernels(rec, launches)
@@ -1696,10 +2040,19 @@ def main() -> int:
     cpu_parity(work, all_lines)
     contig_parity(work)
     log(f"[{time.perf_counter() - T0:.0f} s] cpu parity done")
+    rates = stream_phase(work, all_lines)
+    log(f"[{time.perf_counter() - T0:.0f} s] stream done: reads/s by "
+        f"workers {json.dumps(rates)}")
+    devstats_phase(work)
+    cli_phase(work)
+    log(f"[{time.perf_counter() - T0:.0f} s] devstats, cli done")
     for label in ("ccs use_pallas=True", "ccs", "ont", "clr",
                   "contig 2.5 Mb"):
         profile_phase(work, label)
+    for label in ("ccs", "ont", "clr"):
+        profile_phase(work, label, workers=4)
     log(f"total {time.perf_counter() - T0:.0f} s")
+    print(json.dumps({"sam_sha256": sha}))
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -1709,4 +2062,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        # a stream worker hung on the card must not hold the exit
+        os._exit(1)
+    sys.exit(rc)

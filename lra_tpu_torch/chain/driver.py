@@ -37,6 +37,7 @@ from ..ops.sdp_blocked import chain_mask_from_scores, chain_scores_blocked
 from ..ops.sdp_windowed import (chain_scores_windowed, far_schedule,
                                 resolve_far_np)
 from ..options import Options
+from ..utils import devstats
 from ..utils import pow2_at_least as _pow2
 
 _BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -261,6 +262,7 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
 
     Both N (fragments) and B (problems per bucket) are padded to fixed
     sizes; every bucket is launched before the one merged download."""
+    rnd = devstats.Round() if devstats.ENABLED else None
     # N == 1 is trivial: the only chain is the fragment itself
     for p in problems:
         if len(p.qS) == 1:
@@ -311,12 +313,16 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
             packed = _chain_packed_masked(*place_many(*arrays, device=device),
                                           key)
         pending.append((plist, full, packed))
+    if rnd:
+        rnd.launched()
     # one flat device-to-host copy for all buckets
     merged = None
     if pending:
         flats = [pk.reshape(-1) for _, _, pk in pending]
         merged = (flats[0] if len(flats) == 1 else torch.cat(flats)) \
             .cpu().numpy()
+        if rnd:
+            rnd.copied(merged.nbytes)
     off = 0
     for plist, full, pk in pending:
         size = pk.numel()
@@ -351,6 +357,9 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
                     np.asarray(p.lane1, bool), np.asarray(p.lane2, bool),
                     np.ones(n, bool), 1 if p.bp[i] == -2 else 2, WIN_L,
                     p.win_W, N=packed.shape[-1])
+    if rnd:
+        rnd.record("chain_sdp", buckets=len(pending),
+                   jobs=sum(len(pl) for pl, _, _ in pending))
 
 
 @dataclass

@@ -91,6 +91,8 @@
 // memory only, PPC * (2 * R * P + 16) bytes, plus 64 * WP per problem at
 // WP > 1 (at most 74,256 B).
 
+#include <mutex>
+
 #include "banded_common.cuh"
 
 namespace {
@@ -480,13 +482,27 @@ int launch(const void* q, const void* t, const void* qlen, const void* tlen,
            int P, int R, int smem, int walk, cudaStream_t stream) {
   auto kern = banded_refine_kernel<CPT, MULTI>;
   const int threads = 32 * WP * PPC;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  {
+    // the kernel's shared memory limit, raised to this launch's need and
+    // never lowered: host threads launching on their own streams share
+    // it, and lowering it between another thread's raise and its launch
+    // would make that launch fail
+    static std::mutex mu;
+    static int raised[64];
+    std::lock_guard<std::mutex> lock(mu);
+    if (smem > raised[dev]) {
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      raised[dev] = smem;
+    }
+  }
   // persistent grid: the blocks that fit on the card at once, at most one
   // per PPC problems
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,

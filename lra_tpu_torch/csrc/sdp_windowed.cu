@@ -94,6 +94,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <mutex>
+
 #include "pwl.cuh"
 
 namespace cg = cooperative_groups;
@@ -631,15 +633,34 @@ sdp_windowed_kernel(Frag f, Sched sc, float* V, int* bpout, int* laneout,
   }
 }
 
+// The kernel's shared memory limit raised to `dyn` (never lowered: host
+// threads launching on their own streams share it, and lowering it between
+// another thread's raise and its launch would make that launch fail), and
+// clusters past 8 CTAs allowed where C needs them.
 cudaError_t set_attributes(int C, size_t dyn) {
-  cudaError_t e = cudaFuncSetAttribute(
-      sdp_windowed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dyn);
-  if (e == cudaSuccess && C > 8)
+  static std::mutex mu;
+  static size_t raised[64];
+  static bool nonportable[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dyn > raised[dev]) {
+    e = cudaFuncSetAttribute(sdp_windowed_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn);
+    if (e != cudaSuccess) return e;
+    raised[dev] = dyn;
+  }
+  if (C > 8 && !nonportable[dev]) {
     e = cudaFuncSetAttribute(sdp_windowed_kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
-  return e;
+    if (e != cudaSuccess) return e;
+    nonportable[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 void make_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int B,

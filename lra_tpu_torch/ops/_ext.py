@@ -8,10 +8,14 @@ source, all started together.  A build failure raises with nvcc's log;
 nothing here falls back to a kernel's plain torch twin.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0 and counts
-the launch under the kernel's name in ``LAUNCHES``.  A run resets the
-counts with ``reset_launches`` and reads them afterwards to show which
-kernels its path went through.
+``cudaGetLastError()``; ``launch`` passes the calling thread's current
+CUDA stream, raises when the entry point returns other than 0, and
+counts the launch under the kernel's name in ``LAUNCHES``.  A run resets
+the counts with ``reset_launches`` and reads them afterwards to show
+which kernels its path went through.  Launches may come from several
+threads at once (the ``-t N`` pool of pipeline/stream.py, each thread on
+its own stream): the counts, the loaded libraries and the entry points
+are read and written under one lock.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import subprocess
 import threading
 
 import torch
+
+from ..utils import devstats
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -40,12 +46,13 @@ LAUNCHES = {"chain_scores_blocked": 0, "banded_global_traced_packed": 0,
             "chain_scores_windowed": 0}
 
 _libs: dict = {}
-_lock = threading.Lock()
+_lock = threading.RLock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -125,25 +132,32 @@ _entries: dict = {}
 def _entry(lib: str, fn: str, argtypes: list):
     """C entry point ``fn`` of lib<lib>.so with its signature set (once)."""
     key = (lib, fn)
-    f = _entries.get(key)
-    if f is None:
-        f = getattr(_lib(lib), fn)
-        f.restype = ctypes.c_int
-        f.argtypes = list(argtypes) + [ctypes.c_void_p]
-        with _lock:
+    with _lock:
+        f = _entries.get(key)
+        if f is None:
+            f = getattr(_lib(lib), fn)
+            f.restype = ctypes.c_int
+            f.argtypes = list(argtypes) + [ctypes.c_void_p]
             _entries[key] = f
     return f
 
 
 def launch(kernel: str, lib: str, fn: str, argtypes: list, *args) -> None:
     """Call C entry point ``fn`` of lib<lib>.so (last argument: the
-    current CUDA stream, appended here) and raise on a launch error."""
-    rc = _entry(lib, fn, argtypes)(*args,
-                                   torch.cuda.current_stream().cuda_stream)
+    calling thread's current CUDA stream, appended here) and raise on a
+    launch error.  With device-round statistics on (utils/devstats.py),
+    CUDA events on that stream bracket the call."""
+    f = _entry(lib, fn, argtypes)
+    stream = torch.cuda.current_stream()
+    if devstats.ENABLED:
+        rc = devstats.timed_launch(f, args, stream)
+    else:
+        rc = f(*args, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}: "
                            f"{_lib(lib).lra_errstr(rc).decode()})")
-    LAUNCHES[kernel] += 1
+    with _lock:
+        LAUNCHES[kernel] += 1
 
 
 SMEM_MAX = 232448   # shared memory a block may use on sm_90

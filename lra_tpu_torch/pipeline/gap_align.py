@@ -28,6 +28,7 @@ from ..ops.affine_pallas import (banded_pallas_rowsync,
 from ..ops.one_gap import (blocks_from_one_gap_ops, one_gap_traced,
                            pack_one_gap_bucket)
 from ..options import Options
+from ..utils import devstats
 from ..utils import pow2_at_least as _pow2_at_least
 
 # every (K, S) class is a separate dispatch, but dispatches are async
@@ -112,7 +113,7 @@ def job_block_list(job) -> list:
 
 
 def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
-                   device="cuda") -> None:
+                   device="cuda", tag: str = "gap_align") -> None:
     """Fills job.blocks with [(q_off, t_off, len)] relative to gap start.
 
     Dispatch strategy: jobs are bucketed by a SINGLE square size class
@@ -122,8 +123,10 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
     come back in one device-to-host copy.  With opts.use_pallas the
     narrow band tier goes to the fused row-sync kernel
     (ops/affine_pallas.py), on any device: its plain torch twin runs
-    where the tensors lie on the CPU.
+    where the tensors lie on the CPU.  tag names the round in the
+    device-round statistics (utils/devstats.py).
     """
+    rnd = devstats.Round() if devstats.ENABLED else None
     # equal-length gaps with <=1 mismatch resolve inline (diag_gap_guard
     # proof) — SNP-separated anchor gaps are the bulk of a CCS batch
     diag_ok = diag_gap_guard(opts)
@@ -418,7 +421,11 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
 
     # every device bucket is now in flight; do the host-side jobs while
     # the chip works
+    if rnd:
+        t0 = devstats.now()
     run_host_jobs()
+    if rnd:
+        rnd.host_s = devstats.now() - t0
 
     flat_parts = [buf.reshape(-1) for K, _, _, _, buf in pending
                   if K is None]
@@ -428,10 +435,14 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
                    for p in (buf[0].reshape(-1), buf[1])]
     # every result plane merges into one flat uint8 buffer: one
     # device-to-host copy for the round
+    if rnd:
+        rnd.launched()
     merged = None
     if flat_parts:
         merged = (flat_parts[0] if len(flat_parts) == 1 else
                   torch.cat(flat_parts)).cpu().numpy()
+        if rnd:
+            rnd.copied(merged.nbytes)
     off = 0
     for K, items, qlen, tlen, buf in pending:
         if K in ("rowsync", "onegap"):
@@ -485,3 +496,7 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
             jump = (jb[0] | (jb[1] << 8) | (jb[2] << 16) | (jb[3] << 24))
             for b, (job, kb) in enumerate(items):
                 job.blocks = blocks_from_one_gap_ops(plane[b], int(jump[b]))
+    if rnd:
+        rnd.record(tag, buckets=len(pending),
+                   jobs=sum(len(i) for _, i, _, _, _ in pending),
+                   small_jobs=len(small_jobs))

@@ -583,7 +583,7 @@ def finalize_batch(states, gap_jobs, genome, opts, use_device=True,
     # second device round: banded re-alignment of fragmented regions
     if timing:
         timing.tick("gap-splice+plan")
-    solve_gap_jobs(ir_jobs, opts, use_device, device)
+    solve_gap_jobs(ir_jobs, opts, use_device, device, tag="indel_refine")
     if timing:
         timing.tick("indel-refine (device)")
     ir_by_key: dict = {}

@@ -377,7 +377,7 @@ def solve_box_tasks(tasks: list, opts: Options,
             qs2, qe2 = read_len - tk.qe, read_len - tk.qs
             rjob = _queue_box_job(tk, rst, qs2, qe2, jobs)
         spec.append((rjob, qs2, qe2))
-    solve_gap_jobs(jobs, opts, use_device, device=device)
+    solve_gap_jobs(jobs, opts, use_device, device=device, tag="refine_boxes")
 
     for tk, (rjob, qs2, qe2) in zip(tasks, spec):
         st = tk.cluster.strand

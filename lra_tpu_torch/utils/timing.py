@@ -69,35 +69,58 @@ class Timing:
 class CudaEventTiming(Timing):
     """Timing that also records a CUDA event on the current stream at
     start() and at every tick(), so each stage's time can be read as
-    device-stream time (``stage_ms``) as well as host wall time."""
+    device-stream time (``stage_ms``) as well as host wall time.
+
+    One instance may be shared by the threads of a pipelined
+    ``align_stream``, each running its batches on its own stream: every
+    start() opens a new event list, owned by the calling thread and
+    recorded on its current stream, and a stage is the time between two
+    consecutive events of one list only."""
 
     def __init__(self):
         super().__init__()
-        self.events: list = []
+        self.lists: list = []       # (thread name, [(label, event)]) per start
 
     def _mark(self, label: str) -> None:
         import torch
 
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        self.events.append((label, ev))
+        self._tls.events.append((label, ev))
 
     def start(self) -> None:
         super().start()
-        self.events = []
+        self._tls.events = []
+        with self._lock:
+            self.lists.append((threading.current_thread().name,
+                               self._tls.events))
         self._mark("start")
 
     def tick(self, label: str) -> None:
         super().tick(label)
         self._mark(label)
 
-    def stage_ms(self) -> "OrderedDict[str, float]":
-        """{label: ms between the previous event and this one}, summed
-        over repeated labels; synchronizes the device first."""
-        import torch
+    def thread_stage_ms(self) -> "OrderedDict[str, OrderedDict]":
+        """{thread name: {label: ms between the previous event of the same
+        list and this one}}, summed over repeated labels and over the
+        thread's lists; waits for each list's last event (its stream
+        only)."""
+        with self._lock:
+            lists = list(self.lists)
+        out: "OrderedDict[str, OrderedDict]" = OrderedDict()
+        for name, events in lists:
+            if not events:
+                continue
+            events[-1][1].synchronize()
+            st = out.setdefault(name, OrderedDict())
+            for (_, a), (label, b) in zip(events, events[1:]):
+                st[label] = st.get(label, 0.0) + a.elapsed_time(b)
+        return out
 
-        torch.cuda.synchronize()
+    def stage_ms(self) -> "OrderedDict[str, float]":
+        """{label: ms}, thread_stage_ms summed over the threads."""
         out: "OrderedDict[str, float]" = OrderedDict()
-        for (_, a), (label, b) in zip(self.events, self.events[1:]):
-            out[label] = out.get(label, 0.0) + a.elapsed_time(b)
+        for st in self.thread_stage_ms().values():
+            for label, ms in st.items():
+                out[label] = out.get(label, 0.0) + ms
         return out
