@@ -8,6 +8,8 @@
     python3 chip_smoke.py --save-k6 PATH   # every K6 launch of each path
     python3 chip_smoke.py --save-p1 PATH   # every P1 launch of each path
     python3 chip_smoke.py --save-k3 PATH   # every K3 launch of each path
+    python3 chip_smoke.py --save-k8 PATH   # K8's / K9's input in the
+    python3 chip_smoke.py --save-k9 PATH   # mesh phase (kernels line)
 
 Needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); exits non-zero without a result line otherwise, and on any
@@ -32,11 +34,16 @@ failure.  Phases:
    decoded blocks equal to K4's; K7 at N = 1280..40960 with W =
    64..16384, B = 1..3, on an instance where the far term wins and on
    tie-dense instances), K7's cluster size and how many such clusters fit
-   on the card;
+   on the card; K8 (chain_scores) at B 1-512, N 64-9472 on
+   sim.scan_bucket's kinds (invalid rows, unsorted, tie-dense, one lane
+   or both) and a zero-slope piece; K9 (banded_global_kernel) at K 4-30,
+   S 16-512 and B=65536 S=16 K=30, kband None and per problem, edge rows
+   (qlen 0, tlen 0, |qlen - tlen| > K), its arrows walked == K4's ops;
 3. end to end, through align_reads(..., device="cuda"), each path run
    with the launch counts reset just before and read just after, device
    stage times from CUDA events; a path fails if one of its kernels was
-   not launched:
+   not launched, or if the SHA-256 of its SAM lines is not the one
+   recorded in RECORDED_SHA:
    - on one 2 Mb random genome (numpy seed 0), each path a recorded
      warm-up (the largest input each kernel got, the job mix) and then a
      timed run: CCS with use_pallas=True and in the default
@@ -70,6 +77,17 @@ failure.  Phases:
    back; K3's (B, N) on the driver path, exact with every plan; K7 on
    the largest input of CONTIG (b) and of (c), exact and timed with
    clusters of 8 and 16 CTAs;
+5b. the data-parallel mesh (mesh_phase): (a) combined_device_step,
+   sharded_chain_scores, sharded_banded_align and K8 through run_shards
+   at dryrun_multichip's shapes, on ONT's K2 bucket and on K4's largest
+   bucket, on make_mesh() and on [cuda:0] x MESH_N, each equal to its
+   unsharded call, the counts reset just before the sharded calls (K8's
+   and K9's launches for the kernels line); (b) CCS in both
+   configurations, ONT and CONTIG (c) through align_reads under the
+   [cuda:0] x MESH_N mesh: SAM lines and their SHA-256 equal to the
+   unsharded run's and the recorded ones, launches MESH_N x the
+   unsharded run's, walls beside the unsharded ones; (c)
+   dryrun_multichip's q-range contig under that mesh;
 6. SAM lines byte-equal between device="cpu" (the plain twins) and
    device="cuda": the first 16 CCS reads in both configurations, the
    first 4 ONT and CLR reads, and a 500 kb draft contig on the 2 Mb
@@ -78,10 +96,10 @@ failure.  Phases:
 7. the -t N stream: CCS (default configuration), ONT and CLR at their
    full sizes through align_stream(..., device="cuda") in batches of 64
    reads at 1, 2 and 4 workers, each batch awaited with a time limit:
-   SAM lines byte-equal to phase 3's, launches per kernel equal to the
-   sequential run's, and at 2 and 4 workers every launch on its worker's
-   own non-default stream (a wrapper of ops/_ext.launch records them),
-   two streams at least; reads/s at each worker count;
+   SAM lines byte-equal to phase 3's, launches per kernel 1 x the
+   sequential run's (no mesh), and at 2 and 4 workers every launch on
+   its worker's own non-default stream (a wrapper of ops/_ext.launch
+   records them), two streams at least; reads/s at each worker count;
 8. device-round statistics (utils/devstats.py on): one warm batch each
    of CCS, ONT and CLR, the pack / compute / copy / post split of every
    round, the host time inside the kernel launches, launches per round;
@@ -104,6 +122,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -130,6 +149,7 @@ PEAK_F32_OPS_S = 67e12
 # select).
 OPS_PER_CELL = {"banded_global_traced_packed": 10,
                 "banded_pallas_rowsync": 10,
+                "banded_global_kernel": 10,
                 "banded_refine_traced_packed": 18,
                 "one_gap_traced": 20}
 OPS_PER_PAIR = 40
@@ -151,7 +171,34 @@ KERNELS = {
                               "lra_tpu/ops/affine_pallas.py:225"),
     "chain_scores_windowed": ("lra_tpu_torch/csrc/sdp_windowed.cu",
                               "lra_tpu/ops/sdp_windowed.py:111"),
+    # no align_reads path calls these two: the mesh phase drives them
+    "chain_scores": ("lra_tpu_torch/csrc/sdp_scan.cu",
+                     "lra_tpu/ops/sdp.py:52"),
+    "banded_global_kernel": ("lra_tpu_torch/csrc/banded_arrows.cu",
+                             "lra_tpu/ops/affine_kernel.py:142"),
 }
+MESH_KERNELS = ("chain_scores", "banded_global_kernel")
+# each path's SHA-256 of its full SAM lines as an earlier run of this
+# script printed them (its {"sam_sha256": ...} line, NVIDIA H100 80GB
+# HBM3), before the mesh existed: every run, sharded or not, is held to
+# them
+RECORDED_SHA = {
+    "ccs use_pallas=True":
+    "3bad4d86ff08c2f75de05928ee03b010da2a1dcd2c5aa55a83b912e9c165edd6",
+    "ccs": "3bad4d86ff08c2f75de05928ee03b010da2a1dcd2c5aa55a83b912e9c165edd6",
+    "ont": "383cffb8dee3d32a9c9c0a0835e5f7d4d3d7ea29ecceaf6f7617fb3c52d532cb",
+    "clr": "5718a8510804835a0d294a5e0d4a0a45891bc3dad795b35bc649fd9b842ec893",
+    "contig bench":
+    "ba1c43636983a0f212ee0bb668b10738df9ec69c5716038519ecd98781daf6db",
+    "contig 2.5 Mb":
+    "0347e8078069281d3c2e8aefd9a36e71ef4e014f6c156fac58299d2766100c79",
+    "contig 7 Mb":
+    "8aa5ec5c8048533ccdc52f3298cdd4f83fa4625b10629dbdb9bbadaf37c4fbe5",
+}
+# the mesh phase: entries of the one-card mesh ([cuda:0] * MESH_N) and
+# the paths it runs through align_reads
+MESH_N = 4
+MESH_PATHS = ("ccs use_pallas=True", "ccs", "ont", "contig 7 Mb")
 M, MM, IND = 4, -3, -4      # CCS local_match / local_mismatch / local_indel
 DEV = "cuda"                # the device every path runs on
 T0 = time.perf_counter()
@@ -207,6 +254,17 @@ def exact(name, a, b) -> float:
                              f"{diff[:5].tolist()} ({len(diff)} elements)")
     return float((a.double() - b.double()).abs().max()) if a.numel() \
         else 0.0
+
+
+def expect_launches(tag, counts, base, factor) -> None:
+    """Raise unless every kernel's launches are factor x base's: 1 for a
+    run on one device (no mesh active: the stream phase's workers share
+    the card), n for a mesh of n entries (each bucket's kernel runs once
+    a shard)."""
+    want = {k: factor * v for k, v in base.items()}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {factor} x the "
+                             f"unsharded run's {base}")
 
 
 # ------------------------------------------------------------- inputs ---
@@ -382,6 +440,18 @@ def sdp_bound(args) -> tuple:
     return bound(nbytes, pairs * OPS_PER_PAIR)
 
 
+def scan_bound(args) -> tuple:
+    """K8 on this data: every row i (invalid ones too: their bp and lane
+    are outputs) against the valid rows j < i, OPS_PER_PAIR each; inputs
+    read once (23 bytes a row, the 48 PWL constants), V, bp and lane
+    written once."""
+    valid = args[7]
+    before = valid.long().cumsum(1) - valid.long()
+    pairs = float(before.sum())
+    nbytes = valid.numel() * (23 + 12) + 2 * 24 * 4
+    return bound(nbytes, pairs * OPS_PER_PAIR)
+
+
 def windowed_bound(args, W) -> tuple:
     """K7 on this data: per block of 64 rows, its valid rows against the
     valid rows of its near window [b0 - W, b0) (the kernel skips the
@@ -486,6 +556,100 @@ def mask_check(tag, args) -> None:
         f"{plan['ppb']} a block, {plan['threads']} threads): exact with "
         f"{', '.join(n for n, _ in runs[1:])}; {ms:.4f} ms (plain "
         f"{pms:.1f} ms)")
+
+
+def scan_checks(dev, rng) -> None:
+    """K8 against its twin, exact: sim.scan_bucket's kinds (sorted on both
+    lanes or one lane a strand, invalid rows that still get bp and lane,
+    unsorted fragments, tie-dense problems) at B 1-512 and N 64-8192, one
+    bucket on a zero-slope piece of nonzero intercept (pwl_jnp's formula,
+    not K2's table of effective pieces), and N = 9472, past the shared
+    memory of the staged columns."""
+    import torch
+
+    from lra_tpu_torch import preset
+    from lra_tpu_torch.ops import sdp
+    from lra_tpu_torch.ops.gapcost import from_options
+    from lra_tpu_torch.sim import scan_bucket, zero_slope_piece
+
+    gp = from_options(preset("ccs"))
+    for B, N, kind, hand in ((512, 64, "invalid", False),
+                             (512, 512, "both_lanes", False),
+                             (512, 512, "one_lane", False),
+                             (64, 512, "unsorted", False),
+                             (16, 1024, "tie", False),
+                             (13, 2048, "invalid", True),
+                             (4, 4096, "unsorted", False),
+                             (1, 8192, "both_lanes", False),
+                             (2, 9472, "invalid", False)):
+        a = [torch.from_numpy(x).to(dev) for x in scan_bucket(rng, B, N,
+                                                             kind)]
+        sl, it = (torch.from_numpy(x).to(dev) for x in
+                  (zero_slope_piece(gp.slope, gp.inter) if hand
+                   else (gp.slope, gp.inter)))
+        pwl = (sl, it, gp.ceiling1, gp.ceiling2)
+        ref, pms = timed(lambda: sdp.chain_scores_plain(*a, *pwl))
+        got = sdp.chain_scores(*a, *pwl)
+        torch.cuda.synchronize()
+        for nm, x, y in zip(("V", "bp", "lane"), got, ref):
+            exact(f"chain_scores B={B} N={N} {kind} {nm}", x, y)
+        ms = cuda_ms(lambda: sdp.chain_scores(*a, *pwl), 3)
+        bnd, by = scan_bound(a)
+        where = "shared" if sdp.scan_smem(N) >= 25 * N else "global"
+        log(f"kernel chain_scores B={B} N={N} {kind}"
+            f"{' zero-slope piece' if hand else ''} (columns in {where} "
+            f"memory): exact; {ms:.4f} ms (plain {pms:.1f} ms, bound "
+            f"{bnd:.5f} ms, {by})")
+
+
+def arrows_checks(dev, rng) -> None:
+    """K9 against its twin, exact (score bits, arrows): banded_inputs at K
+    4-30 and S 16-512 with kband None and per problem, then the same
+    buckets with their first rows at the edges (qlen 0, tlen 0, |qlen -
+    tlen| > K both ways: the wrapped and clamped score cell); K4's
+    largest main-path bucket, B=65536 S=16 K=30 (68 MB of arrows).  On
+    the unedited buckets K9's arrows walked by _traceback_ops_plain ==
+    K4's ops (banded_global_traced) on the same inputs."""
+    import torch
+
+    from lra_tpu_torch.ops import affine_kernel as ak
+
+    for B, S, K in ((13, 16, 4), (64, 64, 10), (256, 128, 30),
+                    (16, 512, 30), (65536, 16, 30)):
+        q, t, ql, tl, kb = banded_inputs(rng, B, S, K, dev)
+        score, arrows = ak.banded_global_kernel(q, t, ql, tl, K, M, MM, IND,
+                                                kband=kb)
+        walk = ak._traceback_ops_plain(arrows.permute(1, 0, 2), ql, tl, K,
+                                       2 * S)
+        k4 = ak.banded_global_traced(q, t, ql, tl, K, M, MM, IND, kband=kb)
+        torch.cuda.synchronize()
+        exact(f"banded_global_kernel B={B} S={S} K={K}: walked arrows vs "
+              "K4's ops", walk, k4)
+        ql2, tl2 = ql.clone(), tl.clone()
+        for b, (x, y) in enumerate(((0, 5), (5, 0), (S, max(1, S - K - 3)),
+                                    (3, S))):
+            ql2[b], tl2[b] = x, y
+        for tag, qlen, tlen in (("", ql, tl), (" edges", ql2, tl2)):
+            for kband in (None, kb):
+                full = kband if kband is not None else \
+                    torch.full_like(ql, K)
+                ref, pms = timed(lambda: ak.banded_global_kernel_plain(
+                    q, t, qlen, tlen, K, M, MM, IND, full))
+                got = ak.banded_global_kernel(q, t, qlen, tlen, K, M, MM,
+                                              IND, kband=kband)
+                torch.cuda.synchronize()
+                what = "None" if kband is None else "per problem"
+                name = f"banded_global_kernel B={B} S={S} K={K}{tag} kband " \
+                    f"{what}"
+                exact(f"{name} score", got[0], ref[0])
+                exact(f"{name} arrows", got[1], ref[1])
+        ms = cuda_ms(lambda: ak.banded_global_kernel(q, t, ql, tl, K, M, MM,
+                                                     IND, kband=kb), 5)
+        bnd, by = dp_bound("banded_global_kernel", K, q, t, tl, arrows)
+        log(f"kernel banded_global_kernel B={B} S={S} K={K} "
+            f"({ak.arrows_threads(K)} threads a problem): exact, kband None "
+            f"and per problem, edge rows; walk == K4's ops; {ms:.4f} ms "
+            f"(plain {pms:.1f} ms, bound {bnd:.5f} ms, {by})")
 
 
 def kernel_phase(dev) -> None:
@@ -714,6 +878,9 @@ def kernel_phase(dev) -> None:
                 f"{gaps[0]}-{gaps[1]}: exact with {', '.join(names)} "
                 f"({og.plan_str(og.one_gap_plan(K, D, Bt))}); {ms:.3f} ms "
                 f"(plain {pms:.1f} ms)")
+    # K8 and K9, the mesh's two kernels
+    scan_checks(dev, rng)
+    arrows_checks(dev, rng)
 
 
 def clone_call(args, kw) -> tuple:
@@ -1088,15 +1255,19 @@ def check_contig(label, kind, mix, counts) -> None:
 
 
 def e2e_phase(work, rec, mixes) -> tuple:
-    """Drive each path: a recorded warm-up, then a timed run with the
-    launch counts reset just before and read just after.  Returns ({path:
-    SAM lines}, {kernel: launches on the first path that launched it})."""
+    """Drive each path on one device (no mesh): a recorded warm-up, then a
+    timed run with the launch counts reset just before and read just
+    after.  Returns ({path: SAM lines}, {kernel: launches on the first
+    path that launched it}, {path: launches}, {path: wall s})."""
     import torch
 
     from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.parallel.mesh import active_mesh
     from lra_tpu_torch.utils.timing import CudaEventTiming
 
-    all_lines, launches = {}, {}
+    if active_mesh() is not None:
+        raise AssertionError("e2e phase: a mesh is active")
+    all_lines, launches, path_counts, walls = {}, {}, {}, {}
     for label, kind, use_pallas, needed in PATHS:
         genome, batches, idx, opts, gli = work[kind]
         opts.use_pallas = use_pallas
@@ -1140,6 +1311,7 @@ def e2e_phase(work, rec, mixes) -> tuple:
                 raise AssertionError(f"[{label}] kernel {k} was not "
                                      "launched on the main path")
         check_contig(label, kind, mix, counts)
+        path_counts[label], walls[label] = counts, dt
         for k, c in counts.items():
             if c:
                 launches.setdefault(k, c)
@@ -1150,7 +1322,7 @@ def e2e_phase(work, rec, mixes) -> tuple:
             if len(ln.split("\t")) < 11:
                 raise AssertionError(f"malformed SAM line: {ln[:120]}")
         all_lines[label] = lines
-    return all_lines, launches
+    return all_lines, launches, path_counts, walls
 
 
 def chain_mask_phase(problems, opts, rec, launches) -> None:
@@ -1215,6 +1387,8 @@ def main_path_kernels(rec, launches) -> list:
             "banded_pallas_rowsync": ap.banded_pallas_rowsync}
     rows = []
     for name, (src, replaces) in KERNELS.items():
+        if name in MESH_KERNELS:
+            continue
         if name not in rec.best:
             raise AssertionError(f"no main-path call of {name} recorded")
         _, args, kw = rec.best[name]
@@ -1583,6 +1757,271 @@ def contig_parity(work) -> None:
         f"the cuda run {k7} (cpu run {t1 - t0:.1f} s)")
 
 
+def check_sha(label, lines, tag="") -> None:
+    """Raise, naming the path, unless the SHA-256 of its SAM lines is the
+    recorded one (RECORDED_SHA)."""
+    h = sam_sha256({label: lines})[label]
+    if h != RECORDED_SHA[label]:
+        raise AssertionError(f"[{label}]{tag}: SAM SHA-256 {h} != the "
+                             f"recorded {RECORDED_SHA[label]}")
+
+
+def mesh_inputs(rec, work) -> dict:
+    """The mesh phase's recorded inputs: ONT's K2 bucket (its eight
+    arrays) with ONT's PWL (slope, inter, ceiling1, ceiling2), and K4's
+    largest main-path call (args, kw)."""
+    from lra_tpu_torch.ops.gapcost import from_options
+
+    gpo = from_options(work["ont"][3])
+    return {"ont": rec.blocked["ont"][1][:8], "ont_gp": gpo,
+            "ont_pwl": (gpo.slope, gpo.inter, gpo.ceiling1, gpo.ceiling2),
+            "k4": rec.best["banded_global_traced_packed"][1:]}
+
+
+def mesh_calls(m, ins) -> list:
+    """Mesh phase (a) on mesh m: (name, sharded call, unsharded call) of
+    combined_device_step, sharded_chain_scores and sharded_banded_align
+    at dryrun_multichip's shapes (B = 2 x the mesh's entries, N=64,
+    Q=T=64, K=30), K8 through run_shards at those shapes and on ONT's K2
+    bucket (B=512 N=512), sharded_chain_scores on that bucket, and
+    sharded_banded_align on K4's largest main-path bucket (B=65536 S=16
+    K=30)."""
+    import torch
+
+    from lra_tpu_torch.ops import affine_kernel as ak
+    from lra_tpu_torch.ops import sdp
+    from lra_tpu_torch.ops import sdp_blocked as sb
+    from lra_tpu_torch.ops.gapcost import make_gap_params
+    from lra_tpu_torch.parallel import mesh as pm
+    from lra_tpu_torch.sim import mesh_step_inputs
+
+    gp = make_gap_params(4.0, 15.0, 1.5, 2000, 3000)
+    pwl = (gp.slope, gp.inter, gp.ceiling1, gp.ceiling2)
+    chain, gap = mesh_step_inputs(2 * m.size)
+    dc = [torch.from_numpy(a).to(DEV) for a in chain]
+    dg = [torch.from_numpy(a).to(DEV) for a in gap]
+    ont, gpo, pwlo = ins["ont"], ins["ont_gp"], ins["ont_pwl"]
+    a4, kw4 = ins["k4"]
+    q, t, ql, tl, K, m4, mm4, ind4 = a4[:8]
+
+    def k9(q, t, ql, tl, K, m_, mm_, ind_, kb):
+        return ak.banded_global_kernel(q, t, ql, tl, K, m_, mm_, ind_,
+                                       kband=kb)
+    return [
+        ("combined_device_step dryrun",
+         lambda: pm.combined_device_step(m, gp, 4, -3, -4, 30)(*chain, *gap),
+         lambda: sb.chain_scores_blocked(*dc, gp.static_key()) +
+         k9(*dg[:4], 30, 4, -3, -4, dg[4])),
+        ("sharded_chain_scores dryrun",
+         lambda: pm.sharded_chain_scores(m, *chain, gp),
+         lambda: sb.chain_scores_blocked(*dc, gp.static_key())),
+        ("sharded_banded_align dryrun",
+         lambda: pm.sharded_banded_align(m, *gap[:4], 30, 4, -3, -4,
+                                         gap[4]),
+         lambda: k9(*dg[:4], 30, 4, -3, -4, dg[4])),
+        ("chain_scores (K8) dryrun",
+         lambda: pm.run_shards(m, sdp.chain_scores,
+                               pm.shard_batch(m, *chain), *pwl),
+         lambda: sdp.chain_scores(*dc, *pwl)),
+        ("sharded_chain_scores ont K2 bucket",
+         lambda: pm.sharded_chain_scores(m, *ont, gpo),
+         lambda: sb.chain_scores_blocked(*ont, gpo.static_key())),
+        ("chain_scores (K8) ont K2 bucket",
+         lambda: pm.run_shards(m, sdp.chain_scores, pm.shard_batch(m, *ont),
+                               *pwlo),
+         lambda: sdp.chain_scores(*ont, *pwlo)),
+        ("sharded_banded_align K4's largest bucket",
+         lambda: pm.sharded_banded_align(m, q, t, ql, tl, K, m4, mm4, ind4,
+                                         kw4["kband"]),
+         lambda: k9(q, t, ql, tl, K, m4, mm4, ind4, kw4["kband"])),
+    ]
+
+
+def mesh_phase(work, rec, all_lines, path_counts, walls) -> tuple:
+    """The data-parallel mesh on the card.  (a) mesh_calls on make_mesh()
+    (the real devices) and on [cuda:0] * MESH_N, each equal to its
+    unsharded call, with the launch counts reset just before the sharded
+    calls and read just after (every kernel n times a call on a mesh of
+    n; the unsharded calls run outside that window); (b) the MESH_PATHS
+    through align_reads, a warm-up under use_mesh([cuda:0] * MESH_N), then
+    unsharded, mesh, mesh, unsharded runs in turns: SAM lines equal to the
+    e2e run's and their SHA-256 to the recorded one, launches 1 x or
+    MESH_N x the e2e run's, walls and stage times side by side; (c) dryrun_multichip's q-range
+    contig (16,384 fragments over 4 Mb, SHARD_N 2048, halo 60 kb) under
+    that mesh: V, bp and lane equal to the unsharded solve, the chain
+    over m/4 fragments and across the shard boundaries.  Returns the
+    kernels JSON rows of K8 and K9 (launches from (a)) and their inputs
+    ({name: (args, kw)}, for --save-k8 / --save-k9)."""
+    import torch
+
+    from lra_tpu_torch.chain import driver
+    from lra_tpu_torch.ops import _ext
+    from lra_tpu_torch.ops import affine_kernel as ak
+    from lra_tpu_torch.ops import sdp
+    from lra_tpu_torch.ops.gapcost import make_gap_params
+    from lra_tpu_torch.parallel import mesh as pm
+    from lra_tpu_torch.utils.timing import CudaEventTiming
+
+    ins = mesh_inputs(rec, work)
+    one_card = pm.make_mesh(devices=[f"{DEV}:0"] * MESH_N)
+    meshes = [("make_mesh()", pm.make_mesh()),
+              (f"[cuda:0] x {MESH_N}", one_card)]
+    calls = [(mname, m, c) for mname, m in meshes
+             for c in mesh_calls(m, ins)]
+    wants = [unsharded() for _, _, (_, _, unsharded) in calls]
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    gots = [sharded() for _, _, (_, sharded, _) in calls]
+    torch.cuda.synchronize()
+    counts = dict(_ext.LAUNCHES)
+    for (mname, m, (name, _, _)), got, want in zip(calls, gots, wants):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (x, y) in enumerate(zip(got, want)):
+            exact(f"mesh {mname} {name} output {i}", x, y)
+    per_call = {k: 0 for k in counts}
+    for k in ("chain_scores_blocked", "banded_global_kernel"):
+        per_call[k] = 3
+    per_call["chain_scores"] = 2
+    expect_launches("mesh (a)", counts, per_call,
+                    sum(m.size for _, m in meshes))
+    log(f"mesh (a) on {', '.join(n for n, _ in meshes)}: "
+        f"{len(calls)} sharded calls == their unsharded calls; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+
+    # (b) the paths under the one-card mesh, in turns with unsharded runs
+    # of the same phase: unsharded, mesh, mesh, unsharded
+    for label in MESH_PATHS:
+        _, kind, use_pallas, _ = next(p for p in PATHS if p[0] == label)
+        genome, batches, idx, opts, gli = work[kind]
+        opts.use_pallas = use_pallas
+        with pm.use_mesh(one_card):
+            align_all(batches, genome, idx, opts, gli, DEV)
+        torch.cuda.synchronize()
+        runs: dict = {"unsharded": [], "mesh": []}
+        for mesh in (None, one_card, one_card, None):
+            stages: dict = {}
+            lines = []
+            _ext.reset_launches()
+            t0 = time.perf_counter()
+            with pm.use_mesh(mesh) if mesh else contextlib.nullcontext():
+                for bt in batches:
+                    timing = CudaEventTiming()
+                    lines += align_all([bt], genome, idx, opts, gli, DEV,
+                                       timing)[1]
+                    for k, v in timing.stage_ms().items():
+                        stages[k] = stages.get(k, 0.0) + v
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = dict(_ext.LAUNCHES)
+            tag = " under the mesh" if mesh else " (mesh phase, unsharded)"
+            if lines != all_lines[label]:
+                raise AssertionError(f"[{label}]{tag}: SAM lines != the "
+                                     "e2e run's")
+            check_sha(label, lines, tag)
+            expect_launches(f"[{label}]{tag}", got, path_counts[label],
+                            MESH_N if mesh else 1)
+            runs["mesh" if mesh else "unsharded"].append((dt, stages))
+        wm, wu = ([dt for dt, _ in runs[k]] for k in ("mesh", "unsharded"))
+        log(f"mesh (b) [{label}] on [cuda:0] x {MESH_N}: walls "
+            f"{', '.join(f'{w:.3f}' for w in wm)} s, unsharded "
+            f"{', '.join(f'{w:.3f}' for w in wu)} s in turns (e2e run "
+            f"{walls[label]:.3f} s); mean x"
+            f"{statistics.mean(wm) / statistics.mean(wu):.2f}; SAM lines = "
+            f"the e2e run's, SHA-256 = the recorded one; launches {MESH_N} "
+            f"x {sum(path_counts[label].values())}")
+        for st in runs["mesh"][0][1]:
+            m_ = statistics.mean(s_.get(st, 0.0) for _, s_ in runs["mesh"])
+            u_ = statistics.mean(s_.get(st, 0.0)
+                                 for _, s_ in runs["unsharded"])
+            log(f"  stage {st:28s} mesh {m_:10.2f} ms, unsharded "
+                f"{u_:10.2f} ms")
+
+    # (c) dryrun_multichip's q-range contig
+    rng = np.random.default_rng(3)
+    m, span = 16384, 4_000_000
+    dq = np.sort(rng.integers(0, span, m)).astype(np.int64)
+    ln = rng.integers(20, 60, m)
+    tS = dq + 9000 + rng.integers(-40, 40, m)
+    gp = make_gap_params(4.0, 15.0, 1.5, 2000, 3000)
+    solved = []
+    saved = driver.SHARD_N, driver.SHARD_HALO
+    driver.SHARD_N, driver.SHARD_HALO = 2048, 60000
+    try:
+        for mesh in (None, one_card):
+            prob = driver.ChainProblem(dq, dq + ln, tS, tS + ln,
+                                       ln.astype(np.float32),
+                                       np.ones(m, bool), np.ones(m, bool),
+                                       np.arange(m, dtype=np.int64), 0)
+            _ext.reset_launches()
+            t0 = time.perf_counter()
+            if mesh is None:
+                driver.solve_problems([prob], gp, True, DEV)
+            else:
+                with pm.use_mesh(mesh):
+                    driver.solve_problems([prob], gp, True, DEV)
+            torch.cuda.synchronize()
+            solved.append((prob, dict(_ext.LAUNCHES),
+                           time.perf_counter() - t0))
+    finally:
+        driver.SHARD_N, driver.SHARD_HALO = saved
+    (p1, c1, t1), (p4, c4, t4) = solved
+    for k in ("V", "bp", "lane"):
+        if not np.array_equal(getattr(p1, k), getattr(p4, k)):
+            raise AssertionError(f"mesh (c): {k} under the mesh != the "
+                                 "unsharded solve's")
+    expect_launches("mesh (c)", c4, c1, MESH_N)
+    chain = driver.best_chain(p4)
+    if len(chain) <= m // 4 or not (dq[min(chain)] < span // 8 and
+                                    dq[max(chain)] > span - span // 8):
+        raise AssertionError(f"mesh (c): chain of {len(chain)} fragments "
+                             f"over q {dq[min(chain)]}-{dq[max(chain)]}")
+    log(f"mesh (c) q-range contig, {m} fragments over {span} bp, SHARD_N "
+        f"2048: chain of {len(chain)}/{m} over q {dq[min(chain)]}-"
+        f"{dq[max(chain)]}, = unsharded; {t4 * 1e3:.1f} ms on the mesh, "
+        f"{t1 * 1e3:.1f} ms unsharded; launches "
+        f"{json.dumps({k: v for k, v in c4.items() if v})}")
+
+    # the kernels JSON rows: K8 on ONT's K2 bucket, K9 on K4's largest
+    ont, pwlo = ins["ont"], ins["ont_pwl"]
+    a4, kw4 = ins["k4"]
+    q, t, ql, tl, K = a4[:5]
+    kb = kw4["kband"]
+    rows = []
+    inputs = {"chain_scores": ([*ont, *(torch.from_numpy(x).to(DEV) for x
+                                        in pwlo[:2]), *pwlo[2:]], {}),
+              "banded_global_kernel": (a4, kw4)}
+    for name, fn, pfn, bnd_fn, shape in (
+            ("chain_scores", lambda: sdp.chain_scores(*ont, *pwlo),
+             lambda: sdp.chain_scores_plain(*ont, *pwlo),
+             lambda got: scan_bound(ont),
+             f"B={ont[0].shape[0]} N={ont[0].shape[1]}"),
+            ("banded_global_kernel",
+             lambda: ak.banded_global_kernel(q, t, ql, tl, K, *a4[5:8],
+                                             kband=kb),
+             lambda: ak.banded_global_kernel_plain(q, t, ql, tl, K,
+                                                   *a4[5:8], kb),
+             lambda got: dp_bound("banded_global_kernel", K, q, t, tl,
+                                  got[1]),
+             f"B={q.shape[0]} S={q.shape[1]} K={K}")):
+        got, ref = fn(), pfn()
+        torch.cuda.synchronize()
+        err = max(exact(f"{name} (mesh-phase input)", x, y)
+                  for x, y in zip(got, ref))
+        bnd, by = bnd_fn(got)
+        ms, pms = cuda_ms(fn, 10), cuda_ms(pfn, 2)
+        src, replaces = KERNELS[name]
+        log(f"mesh-phase {name} [{shape}]: exact (max |err| {err}); "
+            f"{ms:.4f} ms, plain {pms:.2f} ms, bound {bnd:.5f} ms ({by}); "
+            f"{counts[name]} launches in (a)")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                     "shape": shape})
+    return rows, inputs
+
+
 # -t N: reads a batch in the stream phase (the CLI's --batch default), the
 # worker counts, and how long one batch may take before the phase fails
 STREAM_BATCH = 64
@@ -1675,6 +2114,10 @@ def stream_phase(work, all_lines) -> dict:
     from lra_tpu_torch.pipeline.stream import align_stream
     from lra_tpu_torch.utils.timing import Timing
 
+    from lra_tpu_torch.parallel.mesh import active_mesh
+
+    if active_mesh() is not None:
+        raise AssertionError("stream phase: a mesh is active")
     default = torch.cuda.default_stream().cuda_stream
     switch = sys.getswitchinterval()
     rates: dict = {}
@@ -1714,10 +2157,10 @@ def stream_phase(work, all_lines) -> dict:
                                      "SAM lines != the e2e run's")
             if seq_counts is None:
                 seq_counts = counts
-            elif counts != seq_counts:
-                raise AssertionError(f"stream [{label}] workers {name}: "
-                                     f"launches {counts} != the sequential "
-                                     f"run's {seq_counts}")
+            else:
+                # one device, no mesh: 1 x the sequential run's launches
+                expect_launches(f"stream [{label}] workers {name}", counts,
+                                seq_counts, 1)
             by_thread: dict = {}
             for thread, h in spy.calls:
                 by_thread.setdefault(thread, set()).add(h)
@@ -1891,7 +2334,8 @@ HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
         "banded_global_kernel",
         "banded_refine_kernel", "rowsync_kernel", "one_gap_warp_kernel",
         "one_gap_kernel",
-        "sdp_windowed_kernel")
+        "sdp_windowed_kernel", "chain_scores_scan_kernel",
+        "banded_arrows_kernel")
 
 
 def profile_phase(work, label, workers=0) -> None:
@@ -1991,8 +2435,11 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     rec = Recorder()
     mixes: dict = {}
-    all_lines, launches = e2e_phase(work, rec, mixes)
+    all_lines, launches, path_counts, walls = e2e_phase(work, rec, mixes)
     log(f"[{time.perf_counter() - T0:.0f} s] e2e paths done")
+    for label, lines in all_lines.items():
+        check_sha(label, lines)
+    log("SAM SHA-256 of every path = the recorded one")
     if all_lines["ccs use_pallas=True"] != all_lines["ccs"]:
         raise AssertionError("CCS: the use_pallas=True run's SAM lines != "
                              "the default run's")
@@ -2037,6 +2484,15 @@ def main() -> int:
             save_inputs(tag, store, sys.argv[sys.argv.index(flag) + 1])
     windowed_paths_phase(rec)
     log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
+    mesh_rows, mesh_inputs = mesh_phase(work, rec, all_lines, path_counts,
+                                        walls)
+    rows += mesh_rows
+    for flag, tag, name in (("--save-k8", "K8", "chain_scores"),
+                            ("--save-k9", "K9", "banded_global_kernel")):
+        if flag in sys.argv:
+            save_inputs(tag, {f"mesh phase {name}": (0, *mesh_inputs[name])},
+                        sys.argv[sys.argv.index(flag) + 1])
+    log(f"[{time.perf_counter() - T0:.0f} s] mesh done")
     cpu_parity(work, all_lines)
     contig_parity(work)
     log(f"[{time.perf_counter() - T0:.0f} s] cpu parity done")

@@ -128,7 +128,7 @@ def _chain_packed_masked(qS, qE, tS, tE, sc, l1, l2, valid, key):
     return torch.cat([bits, vmax.view(torch.int32)[:, None]], dim=1)
 
 
-def _chain_packed_windowed(args, key, W):
+def _chain_packed_windowed(*args, key, W):
     """The windowed kernel's result as one int32[2, B, N] (V bitcast;
     bp*4+lane, bp >= FAR2 = -3)."""
     V, bp, lane = chain_scores_windowed(*args, key, L=WIN_L, W=W)
@@ -277,7 +277,7 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
         p.V, p.bp, p.lane = chain_scores_np(
             p.qS, p.qE, p.tS, p.tE, p.score, p.lane1, p.lane2, valid, gp)
 
-    from ..parallel.mesh import batch_multiple, place_many
+    from ..parallel.mesh import batch_multiple, run_sharded
 
     by_bucket: dict = {}
     windowed: dict = {}
@@ -305,13 +305,15 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
             arrays += pad_far_schedules(plist, B, N)
             for p in plist:
                 p.win_W = win_W
-            packed = _chain_packed_windowed(
-                place_many(*arrays, device=device), key, win_W)
+            packed = run_sharded(_chain_packed_windowed, arrays,
+                                 device=device, out_axes=1, key=key, W=win_W)
         elif full:
-            packed = _chain_packed(*place_many(*arrays, device=device), key)
+            # [2, B, N]: the batch is axis 1
+            packed = run_sharded(_chain_packed, arrays, key, device=device,
+                                 out_axes=1)
         else:
-            packed = _chain_packed_masked(*place_many(*arrays, device=device),
-                                          key)
+            packed = run_sharded(_chain_packed_masked, arrays, key,
+                                 device=device)
         pending.append((plist, full, packed))
     if rnd:
         rnd.launched()

@@ -35,7 +35,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("sdp_blocked", "banded_global", "banded_refine", "one_gap",
-           "chain_mask", "sdp_windowed")
+           "chain_mask", "sdp_windowed", "sdp_scan", "banded_arrows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"chain_scores_blocked": 0, "banded_global_traced_packed": 0,
             "banded_refine_traced_packed": 0, "banded_pallas_rowsync": 0,
             "one_gap_traced": 0, "chain_mask_from_scores": 0,
-            "chain_scores_windowed": 0}
+            "chain_scores_windowed": 0, "chain_scores": 0,
+            "banded_global_kernel": 0}
 
 _libs: dict = {}
 _lock = threading.RLock()

@@ -1,5 +1,7 @@
 """Batched banded alignment on device: kernels K4 (banded global DP)
-and K5 (indel-refine DP), each with its device traceback.
+and K5 (indel-refine DP), each with its device traceback, and K9 (the
+banded global DP's full arrow plane and score, for the mesh's
+``sharded_banded_align`` and ``combined_device_step``).
 
 Device version of the banded-global variant of the reference's
 ``AffineOneGapAlign`` (reference: AffineOneGapAlign.h:194-201 doubled-band
@@ -13,11 +15,12 @@ i=0 / j=0 boundary initialization match the reference exactly.  The
 traceback walks from (qlen, tlen) on the device, one op per step, and
 the ops come back packed 2 bits each (LEFT/DOWN/DIAG = 1/2/3, 0 = end).
 
-``banded_global_traced_packed`` and ``banded_refine_traced_packed``
-launch the CUDA kernels (csrc/banded_global.cu, csrc/banded_refine.cu;
-``global_plan`` and ``refine_plan`` choose their launch plans) for CUDA
-tensors and run their plain torch twins (``*_plain``, a python
-loop over rows and over traceback steps) for CPU tensors.  All DP values
+``banded_global_traced_packed``, ``banded_refine_traced_packed`` and
+``banded_global_kernel`` launch the CUDA kernels (csrc/banded_global.cu,
+csrc/banded_refine.cu, csrc/banded_arrows.cu; ``global_plan`` and
+``refine_plan`` choose the first two's launch plans) for CUDA tensors
+and run their plain torch twins (``*_plain``, a python loop over rows
+and over traceback steps) for CPU tensors.  All DP values
 are small integers in f32, so the two agree exactly.  The numpy mirrors
 below (``banded_global_np``, ``banded_refine_np`` and the host
 tracebacks) are the host path's.
@@ -64,11 +67,14 @@ def _pack_ops(ops):
             | (o[:, 3::4] << 6))
 
 
-def banded_arrows_plain(q, t, qlen, tlen, K, m, mm, indel, kband):
+def banded_arrows_plain(q, t, qlen, tlen, K, m, mm, indel, kband,
+                        with_score=False):
     """Forward pass of the linear-gap banded DP (lra_tpu _banded_arrows):
     arrows int8 [T+1, B, 2K+1], arrows[j, b, d] the op at cell
     i = j + d - K (-1 outside the valid cells).  Shared by the plain
-    twins of K4 and of the row-sync kernel (ops/affine_pallas.py)."""
+    twins of K4, K9 and the row-sync kernel (ops/affine_pallas.py).
+    with_score: (score f32[B], arrows), the score read as lra_tpu's
+    gather reads rows[tlen, b, qlen - tlen + K] (_gather_index)."""
     B, Q = q.shape
     T = t.shape[1]
     band = 2 * K + 1
@@ -83,6 +89,10 @@ def banded_arrows_plain(q, t, qlen, tlen, K, m, mm, indel, kband):
 
     row = torch.where((offs >= 0) & in_band, float(indel) * offs.float(),
                       negf)
+    barange = torch.arange(B, device=dev)
+    jf = _gather_index(tlen.to(torch.int64), T + 1)
+    df = _gather_index((qlen - tlen + K).to(torch.int64), band)
+    score = torch.where(jf == 0, row[barange, df], negf)
     arrows = torch.empty((T + 1, B, band), dtype=torch.int8, device=dev)
     a0 = torch.where(offs > 0, LEFT, torch.where(offs == 0, DONE, -1))
     arrows[0] = torch.where(in_band, a0, -1).to(torch.int8)
@@ -109,7 +119,16 @@ def banded_arrows_plain(q, t, qlen, tlen, K, m, mm, indel, kband):
                           torch.where(row == sDel, DOWN, DIAG))
         arr = torch.where(is_i0, DOWN, arr)
         arrows[j] = torch.where(valid, arr, -1).to(torch.int8)
-    return arrows
+        if with_score:
+            score = torch.where(jf == j, row[barange, df], score)
+    return (score, arrows) if with_score else arrows
+
+
+def _gather_index(x, size):
+    """The index lra_tpu's gather reads for x along an axis of `size`: a
+    negative x wraps once by size, then it is clamped into [0, size-1]
+    (numpy would raise where JAX clamps)."""
+    return torch.where(x < 0, x + size, x).clamp(0, size - 1)
 
 
 def _traceback_ops_plain(arrows, qlen, tlen, K, L):
@@ -164,6 +183,80 @@ def banded_global_traced_packed(q, t, qlen, tlen, K, m, mm, indel,
         return _global_cuda(q, t, qlen, tlen, kband, K, m, mm, indel)
     return banded_global_traced_packed_plain(q, t, qlen, tlen, K, m, mm,
                                              indel, kband)
+
+
+def banded_global_kernel(q, t, qlen, tlen, K, m, mm, indel, kband=None):
+    """Banded DP with the full arrow plane (K9; lra_tpu's
+    banded_global_kernel): (score f32[B], arrows int8[B, T+1, 2K+1]).
+
+    q: int8 [B, Q], t: int8 [B, T], qlen/tlen/kband: int32 [B] (kband
+    None: K for every problem).  score[b] is rows[tlen, b, qlen - tlen +
+    K] with lra_tpu's gather (a negative index wraps, then it clamps), so
+    |qlen - tlen| > K reads a band edge, where banded_global_np raises."""
+    kband = _kband_or_full(kband, q.shape[0], K, q.device)
+    if q.device.type == "cuda":
+        return _arrows_cuda(q, t, qlen, tlen, kband, K, m, mm, indel)
+    return banded_global_kernel_plain(q, t, qlen, tlen, K, m, mm, indel,
+                                      kband)
+
+
+def banded_global_kernel_plain(q, t, qlen, tlen, K, m, mm, indel, kband):
+    score, arrows = banded_arrows_plain(q, t, qlen, tlen, K, m, mm, indel,
+                                        kband, with_score=True)
+    return score, arrows.permute(1, 0, 2).contiguous()
+
+
+_ARROWS_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+
+
+def arrows_threads(K: int) -> int:
+    """Threads of csrc/banded_arrows.cu's CTA for a band of 2K+1 cells:
+    one a cell in whole warps, at most 1024."""
+    return min(1024, 32 * ((2 * K + 1 + 31) // 32))
+
+
+def _arrows_cuda(q, t, qlen, tlen, kband, K, m, mm, indel):
+    B, Q = q.shape
+    T = t.shape[1]
+    band = 2 * K + 1
+    if 16 * band + 16 * ((band + 15) // 16) > SMEM_MAX:
+        raise ValueError(f"banded_global_kernel: band {band} does not fit "
+                         "in shared memory")
+    _ext.check("q", q, torch.int8, (B, Q))
+    _ext.check("t", t, torch.int8, (B, T))
+    for name, x in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
+        _ext.check(name, x, torch.int32, (B,))
+    score = torch.empty(B, dtype=torch.float32, device=q.device)
+    arrows = torch.empty((B, T + 1, band), dtype=torch.int8,
+                         device=q.device)
+    if B == 0:
+        return score, arrows
+    p = _ext.ptr
+    _ext.launch("banded_global_kernel", "banded_arrows", "lra_banded_arrows",
+                _ARROWS_ARGS, p(q), p(t), p(qlen), p(tlen), p(kband),
+                p(score), p(arrows), B, Q, T, K, int(m), int(mm), int(indel),
+                arrows_threads(K))
+    return score, arrows
+
+
+def banded_global_traced(q, t, qlen, tlen, K, m, mm, indel, kband=None):
+    """Banded DP + device traceback (lra_tpu's banded_global_traced): ops
+    int8 [B, Q+T], per problem the op codes (DIAG/LEFT/DOWN) walking back
+    from (qlen, tlen), -1 after the end.  K4's packed plane unpacked on the
+    device: the packed codes are the same (0 the end), so nothing is lost.
+    Q is padded so that Q+T is a multiple of 4 (cells past qlen are never
+    valid), and the plane is cut back to Q+T."""
+    B, Q = q.shape
+    L = Q + t.shape[1]
+    pad = -L % 4
+    if pad:
+        q = torch.cat([q, torch.zeros((B, pad), dtype=q.dtype,
+                                      device=q.device)], dim=1)
+    packed = banded_global_traced_packed(q, t, qlen, tlen, K, m, mm, indel,
+                                         kband=kband)
+    ops = torch.stack([(packed >> s) & 3 for s in (0, 2, 4, 6)], dim=2)
+    ops = ops.reshape(B, -1)[:, :L].to(torch.int8)
+    return torch.where(ops == 0, torch.full_like(ops, -1), ops)
 
 
 def unpack_ops(packed: np.ndarray, mark_term: bool = True) -> np.ndarray:

@@ -128,6 +128,29 @@ def pwl_select_torch(x: torch.Tensor, pwl_key) -> torch.Tensor:
     return torch.where(x <= 2, torch.zeros_like(pen), pen)
 
 
+def pwl_torch(x: torch.Tensor, slope, inter, ceiling1, ceiling2):
+    """The plain twin of lra_tpu's pwl_jnp, the PWL of the unblocked SDP
+    (ops/sdp.py:chain_scores, K8): piece = the count of the 23 inner stops
+    (STOPS[1:-1]) <= x, slope[piece] and inter[piece] taken from runtime
+    f32[24] tensors even where the slope is 0, ``slope * xf + inter`` as
+    two separately rounded f32 ops, the floor, the two ceilings (f32), and
+    0 for x <= 2.  Unlike pwl_select_torch, a zero-slope piece is not
+    skipped, so the two differ on hand-made parameters (not on the
+    presets')."""
+    dev = x.device
+    slope = torch.as_tensor(slope, dtype=torch.float32, device=dev)
+    inter = torch.as_tensor(inter, dtype=torch.float32, device=dev)
+    c1 = torch.tensor(float(np.float32(ceiling1)), device=dev)
+    c2 = torch.tensor(float(np.float32(ceiling2)), device=dev)
+    stops = torch.as_tensor(STOPS[1:-1], dtype=torch.int32, device=dev)
+    piece = (x[..., None] >= stops).sum(dim=-1)
+    pen = slope[piece] * x.to(torch.float32)
+    pen = torch.floor(pen + inter[piece])
+    pen = torch.where((pen >= c1) & (pen < c2), c1, pen)
+    pen = torch.where(pen > c2, c2, pen)
+    return torch.where(x <= 2, torch.zeros_like(pen), pen)
+
+
 # ------------------------------------------------- the kernels' lookup ---
 
 def pwl_effective_pieces(pwl_key) -> tuple:

@@ -329,7 +329,7 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
         for (job, _), bl in zip(small_jobs, blocks):
             job.blocks = bl
 
-    from ..parallel.mesh import batch_multiple, place_many
+    from ..parallel.mesh import batch_multiple, kband_fifth, run_sharded
 
     pending = []
     for (K, S, refine), items in device_jobs.items():
@@ -354,11 +354,10 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
         if use_device and refine:
             # refine DP + lane-aware device traceback; same packed op
             # format, so the merged download and unpack path are shared
-            dq, dt, dql, dtl, dkb = place_many(q, t, qlen, tlen, kband,
-                                               device=device)
-            ops = banded_refine_traced_packed(
-                dq, dt, dql, dtl, K, opts.local_match, opts.local_mismatch,
-                opts.local_indel, kband=dkb)
+            ops = run_sharded(kband_fifth(banded_refine_traced_packed),
+                              (q, t, qlen, tlen, kband), K, opts.local_match,
+                              opts.local_mismatch, opts.local_indel,
+                              device=device)
             pending.append((None, items, qlen, tlen, ops))
         elif not use_device and refine:
             _sc, planes = banded_refine_np(
@@ -370,19 +369,17 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
             # The row-sync kernel (fused DP + row-synchronous traceback,
             # ops/affine_pallas.py) handles the narrow band tier; wide
             # tiers use banded_global_traced_packed.
+            # (the gate reads the whole bucket's B, under a mesh too)
             use_pallas = opts.use_pallas and pallas_supported(S, K, B)
-            dq, dt, dql, dtl, dkb = place_many(q, t, qlen, tlen, kband,
-                                               device=device)
+            kernel = banded_pallas_rowsync if use_pallas else \
+                banded_global_traced_packed
+            out = run_sharded(kband_fifth(kernel), (q, t, qlen, tlen, kband),
+                              K, opts.local_match, opts.local_mismatch,
+                              opts.local_indel, device=device)
             if use_pallas:
-                P = banded_pallas_rowsync(
-                    dq, dt, dql, dtl, K, opts.local_match,
-                    opts.local_mismatch, opts.local_indel, kband=dkb)
-                pending.append(("rowsync", items, qlen, tlen, (P, S)))
+                pending.append(("rowsync", items, qlen, tlen, (out, S)))
             else:
-                ops = banded_global_traced_packed(
-                    dq, dt, dql, dtl, K, opts.local_match,
-                    opts.local_mismatch, opts.local_indel, kband=dkb)
-                pending.append((None, items, qlen, tlen, ops))
+                pending.append((None, items, qlen, tlen, out))
         else:
             _score, arrows = banded_global_np(
                 q, t, qlen, tlen, K, opts.local_match, opts.local_mismatch,
@@ -408,11 +405,11 @@ def solve_gap_jobs(jobs: list, opts: Options, use_device: bool = True,
             kbs.append(1)
         qh, th, qt_, tt_, qlen, tlen = pack_one_gap_bucket(qs, ts, Kc, Dc)
         L = 2 * (Dc + Kc) + 8
-        dargs = place_many(qh, th, qt_, tt_, qlen, tlen,
-                           np.asarray(kbs, np.int32), device=device)
-        ops, jump, _sc = one_gap_traced(
-            *dargs, Kc, Dc,
-            opts.local_match, opts.local_mismatch, opts.local_indel, L)
+        ops, jump, _sc = run_sharded(
+            one_gap_traced, (qh, th, qt_, tt_, qlen, tlen,
+                             np.asarray(kbs, np.int32)), Kc, Dc,
+            opts.local_match, opts.local_mismatch, opts.local_indel, L,
+            device=device)
         ops_u8 = ops.to(torch.uint8)
         jump_u8 = torch.cat(
             [((jump >> s) & 0xFF).to(torch.uint8) for s in (0, 8, 16, 24)])

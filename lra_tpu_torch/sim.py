@@ -172,6 +172,90 @@ def sdp_bucket(rng, B: int, N: int) -> tuple:
             (ln * 2.0).astype(np.float32), lane1, lane2, valid)
 
 
+def zero_slope_piece(slope, inter) -> tuple:
+    """Copies of a GapParams' slope and inter (f32[24]) with piece 6, after
+    sloped pieces, made a zero-slope piece of intercept 123: lra_tpu's
+    pwl_jnp (and K8) take such a piece at face value, pwl_select_jnp (and
+    K2's table of effective pieces) skip it."""
+    slope = np.array(slope, np.float32)
+    inter = np.array(inter, np.float32)
+    slope[6], inter[6] = 0.0, 123.0
+    return slope, inter
+
+
+SCAN_KINDS = ("both_lanes", "one_lane", "invalid", "unsorted", "tie")
+
+
+def scan_bucket(rng, B: int, N: int, kind: str) -> tuple:
+    """A [B, N] bucket of the unblocked scan's arguments (ops/sdp.py:
+    chain_scores, K8; qS, qE, tS, tE int32, score f32, lane1, lane2,
+    valid bool) of one SCAN_KINDS kind: fragments sorted by qS on both
+    lanes ("both_lanes") or one lane a strand ("one_lane"); "invalid":
+    both lanes, 30 % of rows invalid, the last 8 rows of problem 0 and
+    all of problem 1 (when B > 1) invalid, lane bits kept, so invalid
+    rows still get bp and lane; "unsorted": the same in index order, not
+    q order; "tie": tie-dense problems (tie_dense_chain_arrays) padded
+    with invalid laneless rows."""
+    if kind == "tie":
+        cols = [np.zeros((B, N), np.int64) for _ in range(5)] + \
+            [np.zeros((B, N), bool) for _ in range(3)]
+        for b in range(B):
+            roots = 3 + b % max(1, N // 8)
+            arr = tie_dense_chain_arrays(rng, roots, N // 2 - roots)
+            n = len(arr[0])
+            for c, a in zip(cols, arr[:7]):
+                c[b, :n] = a
+            cols[7][b, :n] = True
+        qS, qE, tS, tE, score, lane1, lane2, valid = cols
+    else:
+        ln = rng.integers(15, 300, (B, N))
+        qS = rng.integers(0, 60 * N, (B, N))
+        if kind != "unsorted":
+            qS = np.sort(qS, axis=1)
+        qE = qS + ln
+        tS = (qS + rng.integers(-1500, 1500, (B, N)) + 5000).clip(0)
+        tE = tS + ln
+        score = ln * 2.0
+        if kind == "one_lane":
+            strand = rng.random((B, N)) < 0.5
+            lane1, lane2 = ~strand, strand
+        else:
+            lane1 = np.ones((B, N), bool)
+            lane2 = np.ones((B, N), bool)
+        valid = np.ones((B, N), bool)
+        if kind in ("invalid", "unsorted"):
+            valid = rng.random((B, N)) < 0.7
+            valid[0, max(0, N - 8):] = False
+            if B > 1:
+                valid[1] = False
+    return (qS.astype(np.int32), qE.astype(np.int32), tS.astype(np.int32),
+            tE.astype(np.int32), score.astype(np.float32), lane1, lane2,
+            valid)
+
+
+def mesh_step_inputs(B: int, N: int = 64, Q: int = 64, K: int = 30):
+    """dryrun_multichip's arguments of the mesh's combined step
+    (__graft_entry__.py:6-63, numpy seeds 0 and 1): chain arrays [B, N]
+    (qS, qE, tS, tE int32, score f32, lane1, lane2, valid bool; sorted
+    fragments of 20-300 bp near one diagonal, both lanes, all valid) and a
+    gap bucket (gq, gt int8 [B, Q] with one SNP at 10, gql, gtl = Q,
+    gkb = K int32 [B])."""
+    rng = np.random.default_rng(0)
+    qS = np.sort(rng.integers(0, 20000, (B, N)), axis=1).astype(np.int32)
+    ln = rng.integers(20, 300, (B, N)).astype(np.int32)
+    tS = (qS + rng.integers(-300, 300, (B, N)) + 5000).astype(np.int32)
+    chain = [qS, qS + ln, tS, tS + ln, ln.astype(np.float32),
+             np.ones((B, N), bool), np.ones((B, N), bool),
+             np.ones((B, N), bool)]
+    rng = np.random.default_rng(1)
+    gt = rng.integers(0, 4, (B, Q)).astype(np.int8)
+    gq = gt.copy()
+    gq[:, 10] = (gq[:, 10] + 1) % 4
+    gap = [gq, gt, np.full(B, Q, np.int32), np.full(B, Q, np.int32),
+           np.full(B, K, np.int32)]
+    return chain, gap
+
+
 def refine_problems(rng, B: int, S: int, K: int) -> tuple:
     """A [B, S] bucket of indel-refine problems for K5 (q, t int8;
     qlen, tlen, kband int32): t random, q = t with SNPs and up to two

@@ -21,13 +21,16 @@ from lra_tpu_torch.ops import affine_kernel as ak
 from lra_tpu_torch.ops import affine_pallas as ap
 from lra_tpu_torch.ops import one_gap as og
 from lra_tpu_torch.ops import sdp_blocked as sb
+from lra_tpu_torch.ops import sdp
 from lra_tpu_torch.ops import sdp_windowed as sw
-from lra_tpu_torch.ops.gapcost import from_options
+from lra_tpu_torch.ops.gapcost import from_options, make_gap_params
 from lra_tpu_torch.ops import _ext
+from lra_tpu_torch.parallel import mesh
 from lra_tpu_torch.sim import (contig_chain_arrays, mask_problems,
-                               one_gap_problems, refine_problems,
-                               rowsync_problems, sdp_bucket,
-                               tie_dense_chain_arrays)
+                               mesh_step_inputs, one_gap_problems,
+                               refine_problems, rowsync_problems,
+                               scan_bucket, sdp_bucket,
+                               tie_dense_chain_arrays, zero_slope_piece)
 
 torch.set_num_threads(2)
 M, MM, IND = 4, -3, -4
@@ -548,3 +551,88 @@ def test_windowed_cluster_fits(cuda_device):
     for W in (64, 4096, 16384):
         info = sw.cluster_info(W)
         assert info["C"] == sw.CLUSTER and info["max_active_clusters"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,kind,hand", [
+    (8, 64, "invalid", False), (5, 256, "unsorted", False),
+    (4, 512, "tie", False), (3, 512, "one_lane", False),
+    (2, 1024, "both_lanes", False), (4, 256, "both_lanes", True),
+    (1, 9472, "invalid", False)])
+def test_chain_scores_kernel_matches_plain(cuda_device, B, N, kind, hand):
+    """K8 against its twin: invalid rows (bp and lane emitted), unsorted
+    fragments, tie-dense problems, one lane and both, a zero-slope piece
+    (K8 must follow pwl_jnp's formula there, not K2's effective pieces),
+    and N = 9472, past the shared memory of the staged columns (the
+    kernel reads them from global memory)."""
+    gp = from_options(preset("ccs"))
+    pwl = ((*zero_slope_piece(gp.slope, gp.inter), gp.ceiling1, gp.ceiling2)
+           if hand else (gp.slope, gp.inter, gp.ceiling1, gp.ceiling2))
+    slope, inter = (torch.from_numpy(a).to(cuda_device) for a in pwl[:2])
+    args = [torch.from_numpy(a).to(cuda_device) for a in
+            scan_bucket(np.random.default_rng(N + B), B, N, kind)]
+    got = sdp.chain_scores(*args, slope, inter, *pwl[2:])
+    ref = sdp.chain_scores_plain(*args, slope, inter, *pwl[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert bool((ref[1] >= 0).any())
+    if N == 9472:
+        assert sdp.scan_smem(N) < 25 * N
+
+
+def arrows_batch(rng, B, S, K, dev):
+    """gap_batch with its first rows at the edges: qlen 0, tlen 0, and
+    |qlen - tlen| > K both ways (the score's wrapped and clamped cell)."""
+    q, t, qlen, tlen, kb = gap_batch(rng, B, S, K, dev)
+    edges = [(0, min(S, 5)), (min(S, 5), 0), (S, max(1, S - K - 3)),
+             (min(3, S), S)]
+    for b, (ql, tl) in enumerate(edges[:B]):
+        qlen[b], tlen[b] = ql, tl
+    return q, t, qlen, tlen, kb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K,per_problem", [
+    (16, 64, 10, False), (16, 64, 10, True), (64, 16, 30, True),
+    (8, 200, 4, True), (4, 128, 100, False), (2, 64, 600, True)])
+def test_banded_global_kernel_matches_plain(cuda_device, B, S, K,
+                                            per_problem):
+    """K9 against its twin: score bit for bit and the full arrow plane,
+    kband None and per problem, the edge rows of arrows_batch, and bands
+    past one CTA's 1024 threads (K = 600)."""
+    q, t, qlen, tlen, kb = arrows_batch(np.random.default_rng(S + K), B, S,
+                                        K, cuda_device)
+    kb = kb if per_problem else None
+    got = ak.banded_global_kernel(q, t, qlen, tlen, K, M, MM, IND, kband=kb)
+    kbf = kb if per_problem else torch.full_like(qlen, K)
+    ref = ak.banded_global_kernel_plain(q, t, qlen, tlen, K, M, MM, IND,
+                                        kbf)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_combined_device_step_on_repeated_mesh(cuda_device):
+    """combined_device_step on a mesh of [cuda:0] * 2 (dryrun_multichip's
+    shapes, B = 4) == K2 and K9 called on the whole batch, with each
+    kernel launched once a shard."""
+    m = mesh.make_mesh(devices=[cuda_device] * 2)
+    chain, gap = mesh_step_inputs(4)
+    gp = make_gap_params(4.0, 15.0, 1.5, 2000, 3000)
+    step = mesh.combined_device_step(m, gp, 4, -3, -4, 30)
+    _ext.reset_launches()
+    got = step(*chain, *gap)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["chain_scores_blocked"] == 2
+    assert _ext.LAUNCHES["banded_global_kernel"] == 2
+    dc = [torch.from_numpy(a).to(cuda_device) for a in chain]
+    dg = [torch.from_numpy(a).to(cuda_device) for a in gap]
+    want = sb.chain_scores_blocked(*dc, gp.static_key()) + \
+        ak.banded_global_kernel(*dg[:4], 30, 4, -3, -4, kband=dg[4])
+    for g, w in zip(got, want):
+        assert g.device == w.device and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)

@@ -8,12 +8,17 @@ inputs chip_smoke.py recorded:
     python3 tools/kernel_compare.py k6 PATH OTHER_TREE...
     python3 tools/kernel_compare.py p1 PATH OTHER_TREE...   # --save-p1
     python3 tools/kernel_compare.py k3 PATH OTHER_TREE...   # --save-k3
+    python3 tools/kernel_compare.py k8 PATH OTHER_TREE...   # --save-k8
+    python3 tools/kernel_compare.py k9 PATH OTHER_TREE...   # --save-k9
 
 KERNEL is k2 (chain_scores_blocked, csrc/sdp_blocked.cu), k4
 (banded_global_traced_packed, csrc/banded_global.cu), k6
 (one_gap_traced, csrc/one_gap.cu), p1 (banded_pallas_rowsync, the
 rowsync_kernel of csrc/banded_global.cu, or an earlier tree's
-csrc/rowsync.cu) or k3 (chain_mask_from_scores, csrc/chain_mask.cu);
+csrc/rowsync.cu), k3 (chain_mask_from_scores, csrc/chain_mask.cu), k8
+(chain_scores, csrc/sdp_scan.cu) or k9 (banded_global_kernel,
+csrc/banded_arrows.cu; a source whose entry point takes a grid argument
+runs its CTAs over the problems, the grid from grid() below);
 k6, p1 and k3 take every recorded launch of each path, with the device
 time of a path's launches summed at the end.  Each OTHER_TREE
 is an unpacked `git archive` of a commit (or a copy of this tree with
@@ -484,7 +489,144 @@ class K3:
         return sb.chain_mask_from_scores_plain(*self.args)
 
 
-KERNELS = {"k2": K2, "k4": K4, "k6": K6, "p1": P1, "k3": K3}
+class K8:
+    """chain_scores (the unblocked scan); inputs (qS, qE, tS, tE, score,
+    lane1, lane2, valid, slope, inter, ceiling1, ceiling2).
+    chip_smoke.py --save-k8 saves the mesh phase's input."""
+
+    lib, src = "sdp_scan", "sdp_scan.cu"
+    planned_mark = "lra_chain_scores_scan"      # one entry point always
+    patches: dict = {}
+
+    def __init__(self, args, kw):
+        self.args = [a.cuda() for a in args[:10]]
+        self.c1, self.c2 = args[10:12]
+
+    def shape(self) -> str:
+        B, N = self.args[0].shape
+        return f"B={B} N={N}"
+
+    @staticmethod
+    def entry(so: str, planned: bool):
+        fn = ctypes.CDLL(so).lra_chain_scores_scan
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_float] * 2 + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        return fn
+
+    def runner(self, fn, planned):
+        import torch
+
+        from lra_tpu_torch.ops import sdp
+
+        B, N = self.args[0].shape
+        head = [x.data_ptr() for x in self.args]
+
+        def run():
+            out = [torch.empty((B, N), dtype=dt, device="cuda")
+                   for dt in (torch.float32, torch.int32, torch.int32)]
+            rc = fn(*head, *[x.data_ptr() for x in out], self.c1, self.c2,
+                    B, N, sdp.scan_smem(N),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"K8: CUDA launch failed ({rc})")
+            return out
+        return run
+
+    def wrapper(self):
+        from lra_tpu_torch.ops import sdp
+
+        return sdp.chain_scores(*self.args, self.c1, self.c2)
+
+    def plain(self):
+        from lra_tpu_torch.ops import sdp
+
+        return sdp.chain_scores_plain(*self.args, self.c1, self.c2)
+
+
+def grid(K: int, B: int, sms: int) -> int:
+    """The CTAs of a grid-stride K9 variant: B, or as many as are
+    resident at once (32 a SM at most, 2048 threads a SM)."""
+    from lra_tpu_torch.ops import affine_kernel as ak
+
+    return max(1, min(B, sms * min(32, 2048 // ak.arrows_threads(K))))
+
+
+class K9:
+    """banded_global_kernel (score and the full arrow plane); inputs (q,
+    t, qlen, tlen, K, m, mm, indel) and kband.  chip_smoke.py --save-k9
+    saves the mesh phase's input."""
+
+    lib, src = "banded_arrows", "banded_arrows.cu"
+    planned_mark = "int grid"       # a grid-stride variant's entry point
+    outs = ("score", "arrows")
+    patches: dict = {}
+
+    def __init__(self, args, kw):
+        self.q, self.t, self.qlen, self.tlen = [a.cuda() for a in args[:4]]
+        self.K, self.m, self.mm, self.indel = args[4:8]
+        self.kband = kw["kband"].cuda()
+
+    def shape(self) -> str:
+        from lra_tpu_torch.ops import _ext
+        from lra_tpu_torch.ops import affine_kernel as ak
+
+        B, Q = self.q.shape
+        return (f"B={B} S={Q} K={self.K}; {ak.arrows_threads(self.K)} "
+                f"threads; grid {grid(self.K, B, _ext.sm_count(0))} where "
+                "the source takes one")
+
+    @staticmethod
+    def entry(so: str, planned: bool):
+        fn = ctypes.CDLL(so).lra_banded_arrows
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + \
+            [ctypes.c_int] * (9 if planned else 8) + [ctypes.c_void_p]
+        return fn
+
+    def runner(self, fn, planned):
+        import torch
+
+        from lra_tpu_torch.ops import _ext
+        from lra_tpu_torch.ops import affine_kernel as ak
+
+        B, Q = self.q.shape
+        T, K = self.t.shape[1], self.K
+        head = [x.data_ptr() for x in (self.q, self.t, self.qlen, self.tlen,
+                                       self.kband)]
+        tail = [B, Q, T, K, self.m, self.mm, self.indel,
+                ak.arrows_threads(K)]
+        if planned:
+            tail.append(grid(K, B, _ext.sm_count(0)))
+
+        def run():
+            out = [torch.empty(B, dtype=torch.float32, device="cuda"),
+                   torch.empty((B, T + 1, 2 * K + 1), dtype=torch.int8,
+                               device="cuda")]
+            rc = fn(*head, *[x.data_ptr() for x in out], *tail,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"K9: CUDA launch failed ({rc})")
+            return out
+        return run
+
+    def wrapper(self):
+        from lra_tpu_torch.ops import affine_kernel as ak
+
+        return ak.banded_global_kernel(self.q, self.t, self.qlen, self.tlen,
+                                       self.K, self.m, self.mm, self.indel,
+                                       kband=self.kband)
+
+    def plain(self):
+        from lra_tpu_torch.ops import affine_kernel as ak
+
+        return ak.banded_global_kernel_plain(
+            self.q, self.t, self.qlen, self.tlen, self.K, self.m, self.mm,
+            self.indel, self.kband)
+
+
+KERNELS = {"k2": K2, "k4": K4, "k6": K6, "p1": P1, "k3": K3, "k8": K8,
+           "k9": K9}
 PLAN_KEYS = ("tier", "threads", "smem")     # K2's planned entry point
 
 
