@@ -16,7 +16,7 @@ use); exits non-zero without a result line otherwise, and on any
 failure.  Phases:
 
 1. the card's name and power limit; the parallel nvcc build of every
-   kernel source;
+   kernel source, and ptxas's registers and spills for each kernel;
 2. kernels: each hand-written kernel against its plain torch twin on
    seeded inputs at a spread of shapes — exact equality — with median
    CUDA-event times (K2 at both tiers and every launch plan, N = 64 to
@@ -34,11 +34,14 @@ failure.  Phases:
    decoded blocks equal to K4's; K7 at N = 1280..40960 with W =
    64..16384, B = 1..3, on an instance where the far term wins and on
    tie-dense instances), K7's cluster size and how many such clusters fit
-   on the card; K8 (chain_scores) at B 1-512, N 64-9472 on
-   sim.scan_bucket's kinds (invalid rows, unsorted, tie-dense, one lane
-   or both) and a zero-slope piece; K9 (banded_global_kernel) at K 4-30,
-   S 16-512 and B=65536 S=16 K=30, kband None and per problem, edge rows
-   (qlen 0, tlen 0, |qlen - tlen| > K), its arrows walked == K4's ops;
+   on the card; K8 (chain_scores) with every plan of
+   sdp.scan_plan_variants at B 1-512, N 1-9472 on sim.scan_bucket's
+   kinds (invalid rows, unsorted, tie-dense, one lane or both, scores
+   near 2^25), a zero-slope piece and a piece of negative penalty; K9
+   (banded_global_kernel) with every plan of ak.arrows_plan_variants at K
+   4-1100, S 12-512 and B=65536 S=16 K=30, kband None and per problem,
+   edge rows (qlen 0, tlen 0, |qlen - tlen| > K), its arrows walked ==
+   K4's ops;
 3. end to end, through align_reads(..., device="cuda"), each path run
    with the launch counts reset just before and read just after, device
    stage times from CUDA events; a path fails if one of its kernels was
@@ -172,9 +175,9 @@ KERNELS = {
     "chain_scores_windowed": ("lra_tpu_torch/csrc/sdp_windowed.cu",
                               "lra_tpu/ops/sdp_windowed.py:111"),
     # no align_reads path calls these two: the mesh phase drives them
-    "chain_scores": ("lra_tpu_torch/csrc/sdp_scan.cu",
+    "chain_scores": ("lra_tpu_torch/csrc/sdp_blocked.cu",
                      "lra_tpu/ops/sdp.py:52"),
-    "banded_global_kernel": ("lra_tpu_torch/csrc/banded_arrows.cu",
+    "banded_global_kernel": ("lra_tpu_torch/csrc/banded_global.cu",
                              "lra_tpu/ops/affine_kernel.py:142"),
 }
 MESH_KERNELS = ("chain_scores", "banded_global_kernel")
@@ -559,97 +562,159 @@ def mask_check(tag, args) -> None:
 
 
 def scan_checks(dev, rng) -> None:
-    """K8 against its twin, exact: sim.scan_bucket's kinds (sorted on both
+    """K8 against its twin, exact, through the wrapper and with every plan
+    of sdp.scan_plan_variants (the warp tier, the CTA tier, tier 2 with
+    the lists in device scratch): sim.scan_bucket's kinds (sorted on both
     lanes or one lane a strand, invalid rows that still get bp and lane,
-    unsorted fragments, tie-dense problems) at B 1-512 and N 64-8192, one
-    bucket on a zero-slope piece of nonzero intercept (pwl_jnp's formula,
-    not K2's table of effective pieces), and N = 9472, past the shared
-    memory of the staged columns."""
+    unsorted fragments, tie-dense problems, scores near 2^25 on fragments
+    that are predecessors on both lanes at once) at B 1-512 and N 1-9472
+    (N off the blocks of 64: 1, 63, 100, 9472), a zero-slope piece of
+    nonzero intercept (pwl_jnp's formula, not K2's table of effective
+    pieces) and a piece of negative penalty (no pruning).  Beside K8's
+    time, K2's on the same bucket where K2 takes it (N a multiple of 64
+    up to 8192, the preset's pieces; on them both compute one function,
+    but for the lane where V + w1 and V + w2 round equal)."""
     import torch
 
     from lra_tpu_torch import preset
     from lra_tpu_torch.ops import sdp
+    from lra_tpu_torch.ops import sdp_blocked as sb
     from lra_tpu_torch.ops.gapcost import from_options
-    from lra_tpu_torch.sim import scan_bucket, zero_slope_piece
+    from lra_tpu_torch.sim import negative_piece, scan_bucket, zero_slope_piece
 
     gp = from_options(preset("ccs"))
-    for B, N, kind, hand in ((512, 64, "invalid", False),
-                             (512, 512, "both_lanes", False),
-                             (512, 512, "one_lane", False),
-                             (64, 512, "unsorted", False),
-                             (16, 1024, "tie", False),
-                             (13, 2048, "invalid", True),
-                             (4, 4096, "unsorted", False),
-                             (1, 8192, "both_lanes", False),
-                             (2, 9472, "invalid", False)):
+    pieces = {"preset": (gp.slope, gp.inter),
+              "zero-slope piece": zero_slope_piece(gp.slope, gp.inter),
+              "negative piece": negative_piece(gp.slope, gp.inter)}
+    for B, N, kind, piece in ((512, 64, "invalid", "preset"),
+                              (512, 512, "both_lanes", "preset"),
+                              (512, 512, "one_lane", "preset"),
+                              (64, 512, "unsorted", "preset"),
+                              (16, 1024, "tie", "preset"),
+                              (13, 2048, "invalid", "zero-slope piece"),
+                              (4, 4096, "unsorted", "preset"),
+                              (1, 8192, "both_lanes", "preset"),
+                              (2, 9472, "invalid", "preset"),
+                              (5, 1, "unsorted", "preset"),
+                              (7, 63, "unsorted", "negative piece"),
+                              (4, 100, "unsorted", "zero-slope piece"),
+                              (3, 512, "big_scores", "preset"),
+                              (64, 512, "both_lanes", "negative piece"),
+                              (2, 2048, "unsorted", "negative piece")):
         a = [torch.from_numpy(x).to(dev) for x in scan_bucket(rng, B, N,
                                                              kind)]
-        sl, it = (torch.from_numpy(x).to(dev) for x in
-                  (zero_slope_piece(gp.slope, gp.inter) if hand
-                   else (gp.slope, gp.inter)))
+        sl, it = (torch.from_numpy(x).to(dev) for x in pieces[piece])
         pwl = (sl, it, gp.ceiling1, gp.ceiling2)
         ref, pms = timed(lambda: sdp.chain_scores_plain(*a, *pwl))
-        got = sdp.chain_scores(*a, *pwl)
-        torch.cuda.synchronize()
-        for nm, x, y in zip(("V", "bp", "lane"), got, ref):
-            exact(f"chain_scores B={B} N={N} {kind} {nm}", x, y)
-        ms = cuda_ms(lambda: sdp.chain_scores(*a, *pwl), 3)
+        runs = [("wrapper", lambda: sdp.chain_scores(*a, *pwl))]
+        runs += [(name, lambda plan=plan: sdp._chain_scores_cuda(
+            *a, *pwl, plan=plan)) for name, plan in
+            sdp.scan_plan_variants(N)]
+        for name, fn in runs:
+            got = fn()
+            torch.cuda.synchronize()
+            for nm, x, y in zip(("V", "bp", "lane"), got, ref):
+                exact(f"chain_scores B={B} N={N} {kind} {piece} {name} "
+                      f"{nm}", x, y)
+        ms = cuda_ms(runs[0][1], 3)
         bnd, by = scan_bound(a)
-        where = "shared" if sdp.scan_smem(N) >= 25 * N else "global"
-        log(f"kernel chain_scores B={B} N={N} {kind}"
-            f"{' zero-slope piece' if hand else ''} (columns in {where} "
-            f"memory): exact; {ms:.4f} ms (plain {pms:.1f} ms, bound "
-            f"{bnd:.5f} ms, {by})")
+        k2 = ""
+        if piece == "preset" and N % 64 == 0 and N <= 8192:
+            k2ms = cuda_ms(lambda: sb.chain_scores_blocked(
+                *a, gp.static_key()), 3)
+            k2 = f", K2 on this bucket {k2ms:.4f} ms"
+        log(f"kernel chain_scores B={B} N={N} {kind} {piece} "
+            f"({scan_plan_str(sdp.scan_plan(N))}; prunes "
+            f"{sdp.scan_prune_np(*pieces[piece], gp.ceiling1, gp.ceiling2)}"
+            f"): exact, and with "
+            f"{', '.join(scan_plan_str(p) for _, p in sdp.scan_plan_variants(N))}"
+            f"; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms, {by}"
+            f"{k2})")
+
+
+def scan_plan_str(plan) -> str:
+    return ("tier {tier} threads {threads} smem {smem} scratch {scratch}"
+            .format(**plan))
+
+
+def arrows_plan_str(plan, K, T) -> str:
+    from lra_tpu_torch.ops import affine_kernel as ak
+
+    sp, smem = ak.arrows_launch(plan, K, T)
+    if plan["tier"] == "cta":
+        return f"CTA tier, {plan['threads']} threads, smem {smem}"
+    return ("CPT {CPT} WP {WP} PPC {PPC}, ".format(**plan)
+            + (f"planes staged ({sp} B a problem)" if sp
+               else "rows written directly") + f", smem {smem}")
 
 
 def arrows_checks(dev, rng) -> None:
-    """K9 against its twin, exact (score bits, arrows): banded_inputs at K
-    4-30 and S 16-512 with kband None and per problem, then the same
-    buckets with their first rows at the edges (qlen 0, tlen 0, |qlen -
-    tlen| > K both ways: the wrapped and clamped score cell); K4's
+    """K9 against its twin, exact (score bits, arrows), through the wrapper
+    and with every plan of ak.arrows_plan_variants: banded_inputs at K
+    4-1100 (K4's warp rows at CPT 2, 9 and WP 5; the CTA tier past K =
+    1023) and S 12-512, kband None and per problem, then the same buckets
+    with their first rows at the edges (qlen 0, tlen 0, |qlen - tlen| > K
+    both ways: the wrapped and clamped score cell); planes staged in
+    shared memory and, where a block's planes exceed its stage bytes (S
+    = 256 and 512 at 8 problems a block), written row by row; K4's
     largest main-path bucket, B=65536 S=16 K=30 (68 MB of arrows).  On
-    the unedited buckets K9's arrows walked by _traceback_ops_plain ==
-    K4's ops (banded_global_traced) on the same inputs."""
+    the unedited buckets up to K = 1023, K9's arrows walked by
+    _traceback_ops_plain == K4's ops (banded_global_traced) on the same
+    inputs."""
     import torch
 
+    from lra_tpu_torch.ops import _ext
     from lra_tpu_torch.ops import affine_kernel as ak
 
     for B, S, K in ((13, 16, 4), (64, 64, 10), (256, 128, 30),
-                    (16, 512, 30), (65536, 16, 30)):
+                    (16, 512, 30), (2048, 256, 30), (200, 40, 100),
+                    (6, 24, 600), (5, 12, 1100), (65536, 16, 30)):
         q, t, ql, tl, kb = banded_inputs(rng, B, S, K, dev)
         score, arrows = ak.banded_global_kernel(q, t, ql, tl, K, M, MM, IND,
                                                 kband=kb)
-        walk = ak._traceback_ops_plain(arrows.permute(1, 0, 2), ql, tl, K,
-                                       2 * S)
-        k4 = ak.banded_global_traced(q, t, ql, tl, K, M, MM, IND, kband=kb)
-        torch.cuda.synchronize()
-        exact(f"banded_global_kernel B={B} S={S} K={K}: walked arrows vs "
-              "K4's ops", walk, k4)
+        if K <= 1023:
+            walk = ak._traceback_ops_plain(arrows.permute(1, 0, 2), ql, tl,
+                                           K, 2 * S)
+            k4 = ak.banded_global_traced(q, t, ql, tl, K, M, MM, IND,
+                                         kband=kb)
+            torch.cuda.synchronize()
+            exact(f"banded_global_kernel B={B} S={S} K={K}: walked arrows "
+                  "vs K4's ops", walk, k4)
         ql2, tl2 = ql.clone(), tl.clone()
         for b, (x, y) in enumerate(((0, 5), (5, 0), (S, max(1, S - K - 3)),
                                     (3, S))):
             ql2[b], tl2[b] = x, y
+        plans = ak.arrows_plan_variants(K)
         for tag, qlen, tlen in (("", ql, tl), (" edges", ql2, tl2)):
             for kband in (None, kb):
                 full = kband if kband is not None else \
                     torch.full_like(ql, K)
                 ref, pms = timed(lambda: ak.banded_global_kernel_plain(
                     q, t, qlen, tlen, K, M, MM, IND, full))
-                got = ak.banded_global_kernel(q, t, qlen, tlen, K, M, MM,
-                                              IND, kband=kband)
-                torch.cuda.synchronize()
+                runs = [("wrapper", lambda: ak.banded_global_kernel(
+                    q, t, qlen, tlen, K, M, MM, IND, kband=kband))]
+                runs += [(name, lambda plan=plan: ak._arrows_cuda(
+                    q, t, qlen, tlen, full, K, M, MM, IND, plan=plan))
+                    for name, plan in plans]
                 what = "None" if kband is None else "per problem"
-                name = f"banded_global_kernel B={B} S={S} K={K}{tag} kband " \
-                    f"{what}"
-                exact(f"{name} score", got[0], ref[0])
-                exact(f"{name} arrows", got[1], ref[1])
+                for name, fn in runs:
+                    got = fn()
+                    torch.cuda.synchronize()
+                    lab = (f"banded_global_kernel B={B} S={S} K={K}{tag} "
+                           f"kband {what} {name}")
+                    exact(f"{lab} score", got[0], ref[0])
+                    exact(f"{lab} arrows", got[1], ref[1])
         ms = cuda_ms(lambda: ak.banded_global_kernel(q, t, ql, tl, K, M, MM,
                                                      IND, kband=kb), 5)
         bnd, by = dp_bound("banded_global_kernel", K, q, t, tl, arrows)
+        plan = ak.arrows_plan(K, B, _ext.sm_count(0))
         log(f"kernel banded_global_kernel B={B} S={S} K={K} "
-            f"({ak.arrows_threads(K)} threads a problem): exact, kband None "
-            f"and per problem, edge rows; walk == K4's ops; {ms:.4f} ms "
-            f"(plain {pms:.1f} ms, bound {bnd:.5f} ms, {by})")
+            f"({arrows_plan_str(plan, K, S)}): exact, kband None and per "
+            f"problem, edge rows, with "
+            f"{', '.join(arrows_plan_str(p, K, S) for _, p in plans)}"
+            + ("; walk == K4's ops" if K <= 1023 else "")
+            + f"; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms, "
+            f"{by})")
 
 
 def kernel_phase(dev) -> None:
@@ -2334,8 +2399,8 @@ HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
         "banded_global_kernel",
         "banded_refine_kernel", "rowsync_kernel", "one_gap_warp_kernel",
         "one_gap_kernel",
-        "sdp_windowed_kernel", "chain_scores_scan_kernel",
-        "banded_arrows_kernel")
+        "sdp_windowed_kernel", "scan_warp_kernel", "scan_cta_kernel",
+        "arrows_kernel", "arrows_cta_kernel")
 
 
 def profile_phase(work, label, workers=0) -> None:
@@ -2394,6 +2459,25 @@ def profile_phase(work, label, workers=0) -> None:
         log(f"  {dt / 1e3:10.2f} ms {n:7d}x {key[:90]}")
 
 
+def kernel_label(line: str) -> str:
+    """The kernel's name and template arguments from ptxas's "Compiling
+    entry function '_ZN..._cu_<hash>NNname[I...E]...'" line, e.g.
+    arrows_kernel<2, 0>."""
+    import re
+
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", line)
+    if not m:
+        return "?"
+    at = m.end()
+    name = line[at:at + int(m.group(1))]
+    rest = line[at + int(m.group(1)):]
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+    if args:
+        name += "<" + ", ".join(re.findall(r"L[a-z](\d+)E", args.group(1))) \
+            + ">"
+    return name
+
+
 def main() -> int:
     import torch
 
@@ -2415,9 +2499,12 @@ def main() -> int:
     for n in _ext.SOURCES:
         logf = os.path.join(_ext.BUILD_DIR, f"{n}.log")
         if os.path.exists(logf):
+            kern = "?"
             for ln in open(logf):
-                if "registers" in ln or "spill" in ln:
-                    log(f"  ptxas {n}: {ln.strip()[:150]}")
+                if "Compiling entry function" in ln:
+                    kern = kernel_label(ln)
+                elif "registers" in ln or "spill" in ln:
+                    log(f"  ptxas {n} {kern}: {ln.strip()[:150]}")
 
     from lra_tpu_torch import native
 

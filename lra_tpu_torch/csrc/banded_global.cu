@@ -110,6 +110,29 @@
 // (256, 2) cap), no spills; dynamic shared memory only, PPC * (2 * R * P
 // + 16) bytes plus 32 * WP per problem at WP > 1.  rowsync_kernel: 117
 // registers, no spills; PPC * (2 * R * 16 + SP + 16) bytes.
+//
+// K9, banded_global_kernel (arrows_kernel, below), replaces
+// lra_tpu/ops/affine_kernel.py:banded_global_kernel (:142, the lax.scan
+// of _banded_arrows, :34-139, its rows transposed to [B, T+1, 2K+1]): the
+// same forward rows with no walk, every cell's arrow out as int8 (-1 off
+// the valid cells; row 0 DONE at d = K, LEFT right of it, -1 left of it
+// and outside kband) and score[b] = rows[tlen, b, qlen - tlen + K] read as
+// JAX's gather reads it (a negative index wraps once by the axis' size,
+// then it is clamped).  It is banded_rows' ARROWS instance: a cell's
+// arrow is the 2-bit code K4 derives from the same registers (S, the left
+// neighbour's S + indel, sDel), or -1 where the cell is invalid; kband is
+// clamped to [-1, K] and qlen to [-1, T + K] first, which leaves every
+// band cell's validity as it was and keeps the pad cells d >= band
+// invalid.  Rows above min(tlen, T) hold only -1 and run no DP.  Bound:
+// the bytes of the arrow plane, B * (T+1) * (2K+1) (68 MB at the mesh
+// phase's B=65536 S=16 K=30), beside K4's row instructions.  A group
+// stages its problem's plane in shared memory (SP bytes, at the offset of
+// its place in the output modulo 16) and writes it with 16-byte stores
+// between a byte head and tail, the rows above min(tlen, T) filled with
+// -1 on the way; a plane that does not fit (ops/affine_kernel.py:
+// arrows_plan) goes out row by row.  Bands past 2047 cells (K > 1023)
+// run arrows_cta_kernel: a CTA a problem, a thread a cell, the closure by
+// log-doubling steps between block barriers (K9's first design).
 
 #include <mutex>
 
@@ -391,6 +414,41 @@ struct Xch {
   int vfirst;   // its first cell is valid
 };
 
+// JAX's gather index: a negative index wraps once, then clamps
+__device__ __forceinline__ int gather_index(int x, int size) {
+  if (x < 0) x += size;
+  return x < 0 ? 0 : (x > size - 1 ? size - 1 : x);
+}
+
+// 0xff in the bytes of a word from byte `keep` on (all at keep <= 0, none
+// at keep >= 4)
+__device__ __forceinline__ unsigned ff_from(int keep) {
+  return keep <= 0 ? 0xffffffffu : keep >= 4 ? 0u : 0xffffffffu << (8 * keep);
+}
+
+// n bytes of an arrow plane to dst by threads t of nt: bytes [0, lim)
+// from src (src - dst a multiple of 16; null when lim is 0), bytes [lim,
+// n) -1; 16-byte stores between a byte head and tail.
+__device__ __forceinline__ void copy_plane(int8_t* dst, const uint8_t* src,
+                                           int n, int lim, int t, int nt) {
+  const int head = min(n, (int)((16 - ((size_t)dst & 15)) & 15));
+  for (int k = t; k < head; k += nt) dst[k] = k < lim ? (int8_t)src[k] : -1;
+  const int nv = (n - head) >> 4;
+  for (int v = t; v < nv; v += nt) {
+    const int o = head + 16 * v, keep = lim - o;
+    uint4 x = keep > 0 ? *(const uint4*)(src + o) : make_uint4(0, 0, 0, 0);
+    if (keep < 16) {
+      x.x |= ff_from(keep);
+      x.y |= ff_from(keep - 4);
+      x.z |= ff_from(keep - 8);
+      x.w |= ff_from(keep - 12);
+    }
+    *(uint4*)(dst + o) = x;
+  }
+  for (int k = head + 16 * nv + t; k < n; k += nt)
+    dst[k] = k < lim ? (int8_t)src[k] : -1;
+}
+
 // The kernels' parameters: one bucket of problems and its launch plan.
 #define BANDED_PARAMS                                                      \
   const int8_t *__restrict__ q, const int8_t *__restrict__ t,              \
@@ -398,16 +456,23 @@ struct Xch {
       const int *__restrict__ kband, uint8_t *__restrict__ planes,         \
       uint8_t *__restrict__ out, int *__restrict__ counter, int B, int Q,  \
       int T, int K, float m, float mm, float indel, int WP, int P, int R, \
-      int walk, int SP
+      int walk, int SP, float *__restrict__ score
 #define BANDED_ARGS                                                        \
   q, t, qlen, tlen, kband, planes, out, counter, B, Q, T, K, m, mm, indel, \
-      WP, P, R, walk, SP
+      WP, P, R, walk, SP, score
+
+// What banded_rows does with a problem's rows: K4's op walk, P1's row
+// walk, or K9's int8 arrow plane and score.
+enum Mode { WALK_OPS, WALK_ROWS, ARROWS };
 
 // The forward rows of a bucket's problems and, after each problem's rows,
 // its walk: K4's op walk (walk_back; out: [B, (Q+T)/4] packed ops) or
 // P1's row walk (walk_rowsync; out: [B, SP] row codes).  planes: [B,
-// T+1, P] scratch, unless a problem's plane fits in shared memory.
-template <int CPT, bool MULTI, bool ROWSYNC>
+// T+1, P] scratch, unless a problem's plane fits in shared memory.  K9
+// (ARROWS): out is the arrow plane [B, T+1, 2K+1] (int8), score [B];
+// each group stages its problem's plane in SP bytes of shared memory, or
+// writes its rows to out directly when SP is 0; R = 0, no walk.
+template <int CPT, bool MULTI, int MODE>
 __device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int SEGC = 32 * CPT;
@@ -416,10 +481,12 @@ __device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
   const int g = warp / WP;
   const int wig = warp - g * WP;
   const int gbytes = 2 * R * P + (MULTI ? 2 * WP * (int)sizeof(Xch) : 0) +
-                     (ROWSYNC ? SP : 0) + 16;
+                     (MODE != WALK_OPS ? SP : 0) + 16;
   uint8_t* buf = smem + g * gbytes;
   Xch* xch = (Xch*)(buf + 2 * R * P);
   int* slot = (int*)(buf + gbytes - 16);  // two problem indices, by parity
+  // K9's staged plane, after the exchange slots
+  uint8_t* stage = buf + 2 * R * P + (MULTI ? 2 * WP * (int)sizeof(Xch) : 0);
   const int band = 2 * K + 1;
   const int L = Q + T;
   const int d0 = (wig * 32 + lane) * CPT;
@@ -461,7 +528,20 @@ __device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
   for (int it = 1; b < B; ++it) {
     const int8_t* qb = q + (size_t)b * Q;
     const int8_t* tb = t + (size_t)b * T;
-    const int ql = nql, tl = ntl, kb = nkb;
+    // K9 takes any qlen and kband: clamped, every band cell keeps its
+    // validity and the pad cells stay invalid
+    const int ql = MODE == ARROWS ? min(max(nql, -1), T + K) : nql;
+    const int tl = ntl;
+    const int kb = MODE == ARROWS ? min(max(nkb, -1), K) : nkb;
+    // K9: the score's cell (row jf; dfc, its index among the lane's
+    // cells), the plane's place in out and where its rows go
+    const int jf = gather_index(tl, T + 1);
+    const int dfc =
+        gather_index((int)((unsigned)nql - (unsigned)tl + (unsigned)K),
+                     band) - d0;
+    float sc = NEGF;
+    int8_t* dst = (int8_t*)out + (size_t)b * (T + 1) * band;
+    int8_t* arow = SP ? (int8_t*)stage + ((size_t)dst & 15) : dst;
     int qc[CPT];  // q codes of the lane's cells at row j
 #pragma unroll
     for (int c = 0; c < CPT; ++c) qc[c] = nqc[c];
@@ -481,8 +561,14 @@ __device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
       S[c] = (offs >= 0 && inb) ? indel * (float)offs : NEGF;
       lo[c] = inb && offs > 0;
       hi[c] = false;
+      if constexpr (MODE == ARROWS) {
+        if (d0 + c < band)
+          arow[d0 + c] = (int8_t)(!inb ? -1 : offs > 0 ? LEFT
+                                              : offs == 0 ? DONE : -1);
+        if (jf == 0 && c == dfc) sc = S[c];
+      }
     }
-    store_row<CPT>(prow, lo, hi, lane);
+    if constexpr (MODE != ARROWS) store_row<CPT>(prow, lo, hi, lane);
     // row j-1's S right of the warp's last cell (lane 31 reads it)
     float Srn = NEGF;
     if (MULTI && wig + 1 < WP) {
@@ -574,7 +660,18 @@ __device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
         lo[c] = v && !i0 && (eqL || !eqD);
         hi[c] = v && (i0 || !eqL);
       }
-      store_row<CPT>(prow, lo, hi, lane);
+      if constexpr (MODE == ARROWS) {
+        // K9: the code as int8 (never 0 on a valid cell), -1 off them
+        int8_t* r = arow + (size_t)j * band;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          if (d0 + c < band)
+            r[d0 + c] = (vmask >> c) & 1 ? (int8_t)(lo[c] | hi[c] << 1) : -1;
+          if (j == jf && c == dfc) sc = S[c];
+        }
+      } else {
+        store_row<CPT>(prow, lo, hi, lane);
+      }
       const int qs = __shfl_down_sync(FULL, qc[0], 1);
 #pragma unroll
       for (int c = 0; c + 1 < CPT; ++c) qc[c] = qc[c + 1];
@@ -592,8 +689,23 @@ __device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
       nb = __shfl_sync(FULL, ticket, 0);
     }
     prefetch(nb);
-    if (walk && wig == 0) {
-      if constexpr (ROWSYNC)
+    if constexpr (MODE == ARROWS) {
+      // K9: the staged plane out (rows above jmax -1), or those rows
+      // alone; the group's threads in turn
+      const int plane = (T + 1) * band, lim = (max(jmax, 0) + 1) * band;
+      const int gt = wig * 32 + lane, gn = 32 * WP;
+      if (SP)
+        copy_plane(dst, (const uint8_t*)arow, plane, lim, gt, gn);
+      else
+        copy_plane(dst + lim, nullptr, plane - lim, 0, gt, gn);
+      if ((unsigned)dfc < (unsigned)CPT) score[b] = sc;
+      // the stage is read before the next problem's rows overwrite it
+      if (MULTI)
+        group_sync(g + 1, 32 * WP);
+      else
+        __syncwarp();
+    } else if (walk && wig == 0) {
+      if constexpr (MODE == WALK_ROWS)
         walk_rowsync(pl, buf, buf + 2 * R * P, out + (size_t)b * SP, ql, tl,
                      T, K, band, R, SP, lane, in_smem);
       else
@@ -607,14 +719,111 @@ __device__ __forceinline__ void banded_rows(BANDED_PARAMS) {
 template <int CPT, bool MULTI>
 __global__ void __launch_bounds__(256, 2)
 banded_global_kernel(BANDED_PARAMS) {
-  banded_rows<CPT, MULTI, false>(BANDED_ARGS);
+  banded_rows<CPT, MULTI, WALK_OPS>(BANDED_ARGS);
 }
 
 __global__ void __launch_bounds__(256, 2) rowsync_kernel(BANDED_PARAMS) {
-  banded_rows<2, false, true>(BANDED_ARGS);
+  banded_rows<2, false, WALK_ROWS>(BANDED_ARGS);
+}
+
+template <int CPT, bool MULTI>
+__global__ void __launch_bounds__(256, 2) arrows_kernel(BANDED_PARAMS) {
+  banded_rows<CPT, MULTI, ARROWS>(BANDED_ARGS);
 }
 
 using Kernel = decltype(&rowsync_kernel);  // every instance's type
+
+// K9's tier for bands past 2047 cells (K > 1023): one CTA a problem, 32 *
+// ceil(band / 32) threads (at most 1024; a thread takes cells d = tid,
+// tid + nt, ...).  The previous row, two closure buffers, sDel and the
+// cells' flags live in shared memory (arrows_cta_smem); per row the base
+// values, the LEFT closure by log-doubling steps (row = max(row, row[d -
+// sh] + indel * sh)) and the arrows, 3 + ceil(log2(band)) block barriers.
+// Each row's arrows go out as one coalesced store of band bytes.
+constexpr int SMEM_MAX = 232448;
+
+__host__ __device__ constexpr int arrows_cta_smem(int band) {
+  return 16 * band + ((band + 15) / 16) * 16;
+}
+
+__global__ void __launch_bounds__(1024)
+    arrows_cta_kernel(const int8_t* __restrict__ q,
+                      const int8_t* __restrict__ t,
+                      const int* __restrict__ qlen,
+                      const int* __restrict__ tlen,
+                      const int* __restrict__ kband, float* score,
+                      int8_t* arrows, int Q, int T, int K, float m, float mm,
+                      float indel, int logs) {
+  extern __shared__ __align__(16) unsigned char smem_cta[];
+  const int band = 2 * K + 1, b = blockIdx.x, nt = blockDim.x;
+  float* prev = (float*)smem_cta;
+  float* bufA = prev + band;
+  float* bufB = bufA + band;
+  float* sdel = bufB + band;
+  uint8_t* flag = (uint8_t*)(sdel + band);  // 1: valid, 2: i == 0
+  const int ql = qlen[b], tl = tlen[b], kb = kband[b];
+  const int8_t* qb = q + (size_t)b * Q;
+  const int8_t* tb = t + (size_t)b * T;
+  int8_t* ab = arrows + (size_t)b * (T + 1) * band;
+  const int jf = gather_index(tl, T + 1);
+  const int df =
+      gather_index((int)((unsigned)ql - (unsigned)tl + (unsigned)K), band);
+
+  // row 0: P[i, 0] = indel * i for 0 <= i <= kband (d = i + K)
+  for (int d = threadIdx.x; d < band; d += nt) {
+    const int off = d - K;
+    const bool inb = off >= -kb && off <= kb;
+    const float v = off >= 0 && inb ? indel * (float)off : NEGF;
+    prev[d] = v;
+    ab[d] = (int8_t)(!inb ? -1 : off > 0 ? LEFT : off == 0 ? DONE : -1);
+    if (jf == 0 && d == df) score[b] = v;
+  }
+  __syncthreads();
+  for (int j = 1; j <= T; ++j) {
+    const int tj = tb[j - 1];
+    for (int d = threadIdx.x; d < band; d += nt) {
+      const int i = j + d - K;
+      const int qc = i - 1 >= 0 && i - 1 < Q ? qb[i - 1] : QPAD;
+      const float sMat = __fadd_rn(prev[d], qc == tj ? m : mm);
+      const float sDel = __fadd_rn(d + 1 < band ? prev[d + 1] : NEGF, indel);
+      float base = fmaxf(sMat, sDel);
+      if (i == 0) base = indel * (float)j;
+      const int off = d - K;
+      const bool valid = i >= 0 && i <= ql && j <= tl && off >= -kb &&
+                         off <= kb;
+      bufA[d] = valid ? base : NEGF;
+      sdel[d] = sDel;
+      flag[d] = (uint8_t)((valid ? 1 : 0) | (i == 0 ? 2 : 0));
+    }
+    __syncthreads();
+    float* src = bufA;
+    float* dstb = bufB;
+    for (int s = 0; s < logs; ++s) {
+      const int sh = 1 << s;
+      const float add = indel * (float)sh;
+      for (int d = threadIdx.x; d < band; d += nt)
+        dstb[d] = fmaxf(src[d], __fadd_rn(d >= sh ? src[d - sh] : NEGF, add));
+      __syncthreads();
+      float* tmp = src;
+      src = dstb;
+      dstb = tmp;
+    }
+    // the masked row becomes the next row's prev
+    for (int d = threadIdx.x; d < band; d += nt)
+      prev[d] = flag[d] & 1 ? src[d] : NEGF;
+    __syncthreads();
+    int8_t* arow = ab + (size_t)j * band;
+    for (int d = threadIdx.x; d < band; d += nt) {
+      const float r = prev[d];
+      const float left = __fadd_rn(d > 0 ? prev[d - 1] : NEGF, indel);
+      int a = r == left ? LEFT : (r == sdel[d] ? DOWN : DIAG);
+      if (flag[d] & 2) a = DOWN;
+      arow[d] = (int8_t)(flag[d] & 1 ? a : -1);
+      if (j == jf && d == df) score[b] = r;
+    }
+    __syncthreads();
+  }
+}
 
 // The blocks of a kernel that fit on the card at once (threads and
 // dynamic shared memory a block), after raising the kernel's shared
@@ -714,7 +923,7 @@ extern "C" int lra_banded_global_traced_packed(
   kern<<<grid, threads, smem, st>>>(
       (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
       (const int*)kband, (uint8_t*)planes, (uint8_t*)out, (int*)counter, B, Q,
-      T, K, (float)m, (float)mm, (float)indel, WP, P, R, walk, 0);
+      T, K, (float)m, (float)mm, (float)indel, WP, P, R, walk, 0, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -740,6 +949,73 @@ extern "C" int lra_banded_pallas_rowsync(
   rowsync_kernel<<<grid, 32 * PPC, smem, st>>>(
       (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
       (const int*)kband, (uint8_t*)planes, (uint8_t*)P, (int*)counter, B, S,
-      S, K, (float)m, (float)mm, (float)indel, 1, 16, R, 1, SP);
+      S, K, (float)m, (float)mm, (float)indel, 1, 16, R, 1, SP, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K9: q, t: int8 [B, Q], [B, T]; qlen, tlen, kband: int32 [B].  Out:
+// score f32 [B], arrows int8 [B, T+1, 2K+1]; counter: one int32 of
+// scratch.  The plan from ops/affine_kernel.py:arrows_plan and
+// arrows_launch: CPT > 0 runs the warp rows (CPT, WP, PPC; SP staging
+// bytes a problem, 0 to write the rows to arrows directly; smem), CPT = 0
+// the CTA tier (threads a problem; smem = arrows_cta_smem(band)).
+extern "C" int lra_banded_arrows(const void* q, const void* t,
+                                 const void* qlen, const void* tlen,
+                                 const void* kband, void* score, void* arrows,
+                                 void* counter, int B, int Q, int T, int K,
+                                 int m, int mm, int indel, int CPT, int WP,
+                                 int PPC, int SP, int threads, int smem,
+                                 void* stream) {
+  if (B == 0) return 0;
+  const int band = 2 * K + 1;
+  if (K < 0 || Q < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (CPT == 0) {
+    if (threads % 32 || threads < 32 || threads > 1024 ||
+        smem != arrows_cta_smem(band) || smem > SMEM_MAX)
+      return (int)cudaErrorInvalidValue;
+    static std::mutex mu;
+    static unsigned long long raised = 0;  // a bit per device
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    {
+      std::lock_guard<std::mutex> lock(mu);
+      if (!(raised >> dev & 1)) {
+        e = cudaFuncSetAttribute((const void*)arrows_cta_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_MAX);
+        if (e != cudaSuccess) return (int)e;
+        raised |= 1ull << dev;
+      }
+    }
+    int logs = 0;
+    while ((1 << logs) < band) ++logs;
+    arrows_cta_kernel<<<B, threads, smem, st>>>(
+        (const int8_t*)q, (const int8_t*)t, (const int*)qlen,
+        (const int*)tlen, (const int*)kband, (float*)score, (int8_t*)arrows,
+        Q, T, K, (float)m, (float)mm, (float)indel, logs);
+    return (int)cudaGetLastError();
+  }
+  const int xch = WP > 1 ? 2 * WP * (int)sizeof(Xch) : 0;
+  if (band > 32 * CPT * WP || PPC < 1 || WP * PPC > 8 ||
+      threads != 32 * WP * PPC || SP < 0 || SP % 16 ||
+      (SP && SP < (T + 1) * band + 15) || smem != PPC * (xch + SP + 16))
+    return (int)cudaErrorInvalidValue;
+  Kernel kern = nullptr;
+  if (WP == 1 && CPT == 2) kern = arrows_kernel<2, false>;
+  if (WP == 1 && CPT == 5) kern = arrows_kernel<5, false>;
+  if (WP == 1 && CPT == 9) kern = arrows_kernel<9, false>;
+  if (WP > 1 && CPT == 9) kern = arrows_kernel<9, true>;
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(kern, B, threads, PPC, smem,
+                                        (int*)counter, st, &grid);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, threads, smem, st>>>(
+      (const int8_t*)q, (const int8_t*)t, (const int*)qlen, (const int*)tlen,
+      (const int*)kband, nullptr, (uint8_t*)arrows, (int*)counter, B, Q, T,
+      K, (float)m, (float)mm, (float)indel, WP, 0, 0, 0, SP, (float*)score);
   return (int)cudaGetLastError();
 }

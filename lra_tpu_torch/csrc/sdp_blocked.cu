@@ -106,7 +106,41 @@
 // ptxas (sm_90a, nvcc 12.8): the CTA tier 55 registers (launch bounds
 // 1024), no spills; the warp tier 63.  chip_smoke.py logs them, and
 // tools/k2_phases.py times the CTA tier's phases per problem.
-// Global data written by the kernel is never read back by it.
+// Global data written by the kernel is never read back by it (K8's
+// scratch tier excepted, below).
+//
+// K8, chain_scores (scan_warp_kernel, scan_cta_kernel), replaces
+// lra_tpu/ops/sdp.py:chain_scores (:52-97, a jitted lax.scan over the
+// fragments in index order, vmapped over problems).  It is K2's
+// recurrence in any fragment order (nothing above uses q order), so K8
+// is this kernel's SCAN instance (ops/sdp.py:chain_scores_plain is its
+// plain twin, bit for bit).  What SCAN changes, each needed for
+// exactness:
+// - pwl_jnp's rule: the piece is the count of the 23 inner stops <= x and
+//   slope[piece], inter[piece] are taken as given, zero slopes included.
+//   The set-up (scan_pwl_load) fills the table per stop index i with the
+//   runtime piece min(i, 23) from the device arrays, so pwl_bucket_index
+//   finds it.
+// - int32 wrap as XLA's: the diagonals and |d_i - d_j| + 1 (jnp.abs of
+//   INT_MIN is INT_MIN) in unsigned arithmetic.
+// - The lane at the argmax on the sums: lane 2 iff V[j] + w2 > V[j] + w1,
+//   which can fail past 2^24 where the two round equal although w2 > w1.
+//   The cross-block bests keep each lane's sums already; at an in-block
+//   winner whose lane-2 bit is set the resolver computes w1 again from the
+//   two rows' records (the triangle's operands and arithmetic) and
+//   compares both sums.
+// - Pruning (skip V[j] < best, stop once the running max is below best)
+//   holds only for w <= 0.  The set-up checks every piece's penalty at
+//   both ends of its range of x >= 3 (a rounded multiply and add of a
+//   fixed slope, the floor and the ceilings are monotone, so the ends
+//   bound the piece) and folds every entry when one is negative.
+// - Any N >= 1: the rows of the last block from N on are neither
+//   receivers nor predecessors (no valid or lane bit) and are not written.
+//   Past the CTA tier's shared memory (N > 9536) the running bests, the
+//   receiver lists and their starts live in device scratch (tier 2,
+//   scan_cta_kernel<true>); the lists hold uint16 rows, so N <= 65536.
+// ops/sdp.py:scan_plan chooses the tier: one warp a problem up to N = 64,
+// else the CTA tier, else tier 2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,18 +181,76 @@ struct Out {
 // address shared memory directly.
 __shared__ PwlSmem s_pw;
 __shared__ PwlBuckets s_pb;
+__shared__ int s_prune;  // K8: every penalty >= 0, pruning holds
+
+// Coordinate sums and differences: K8 wraps as XLA's int32 does.
+template <bool SCAN>
+__device__ __forceinline__ int dadd(int a, int b) {
+  return SCAN ? (int)((unsigned)a + (unsigned)b) : a + b;
+}
+template <bool SCAN>
+__device__ __forceinline__ int dsub(int a, int b) {
+  return SCAN ? (int)((unsigned)a - (unsigned)b) : a - b;
+}
 
 // w(di, dj) = -PWL_w(|di - dj| + 1) (pwl.cuh: pair_cost's value, the stop
 // index from the bucket table) with the ceilings in registers; built after
-// the tables are loaded and a barrier.
+// the tables are loaded and a barrier.  SCAN: |di - dj| + 1 wraps (jnp.abs
+// of INT_MIN is INT_MIN, a free gap).
+template <bool SCAN>
 struct Cost {
   float c1, c2;
   __device__ Cost() : c1(s_pw.c1), c2(s_pw.c2) {}
   __device__ __forceinline__ float operator()(int di, int dj) const {
-    const int x = abs(di - dj) + 1;
+    int x;
+    if constexpr (SCAN) {
+      const unsigned d = (unsigned)di - (unsigned)dj;
+      x = (int)(((int)d < 0 ? 0u - d : d) + 1u);
+    } else {
+      x = abs(di - dj) + 1;
+    }
     return -pwl_piece(x, s_pw.piece[pwl_bucket_index(x, s_pb)], c1, c2);
   }
 };
+
+// K8's arguments beside the fragments and outputs: pwl_jnp's pieces on
+// the device, the ceilings (f32), N, and tier 2's scratch (scan_scratch
+// bytes a problem).
+struct Scan {
+  const float *slope, *inter;
+  float c1, c2;
+  int N;
+  uint8_t* scratch;
+};
+
+// K8's set-up, by warp 0 of the block (a barrier must follow): the table
+// per stop index i holds pwl_jnp's piece min(i, 23) (the count of the 23
+// inner stops <= x; x >= 100000 is stop index 24 and piece 23), the
+// ceilings, and s_prune: each piece's penalty at both ends of its range
+// of x >= 3 ([3, 4], [STOPS[k], STOPS[k+1] - 1], [50000, INT_MAX]) is >= 0.
+// On a piece the penalty is a monotone function of x, so its ends bound it.
+__device__ __forceinline__ void scan_pwl_load(const Scan& sc) {
+  const int t = threadIdx.x;
+  if (t < 32) {
+    const int p = min(t, NPIECE - 1);
+    const float2 pc = make_float2(sc.slope[p], sc.inter[p]);
+    s_pw.stops[t] = t < NSTOP ? c_stops[t] : INT_MAX;
+    s_pw.piece[t] = t < NSTOP ? pc : make_float2(0.f, 0.f);
+    bool ok = true;
+    if (t < NPIECE) {
+      const int lo = t == 0 ? 3 : c_stops[t];
+      const int hi = t == NPIECE - 1 ? INT_MAX : c_stops[t + 1] - 1;
+      ok = pwl_piece(lo, pc, sc.c1, sc.c2) >= 0.f &&
+           pwl_piece(hi, pc, sc.c1, sc.c2) >= 0.f;
+    }
+    const unsigned all = __ballot_sync(FULL, ok);
+    if (t == 0) {
+      s_pw.c1 = sc.c1;
+      s_pw.c2 = sc.c2;
+      s_prune = all == FULL;
+    }
+  }
+}
 
 // One block's rows and triangle: rc/rx, each row's (qS, qE, tS, tE) and
 // (score bits, lane1 | lane2 << 1 | valid << 2), read from global memory
@@ -185,13 +277,6 @@ struct Staged {
   int cnt[4];
 };
 
-// the CTA tier's dynamic shared memory for N rows (ops/sdp_blocked.py's
-// sdp_plan computes the same)
-__host__ __device__ inline size_t cta_smem(int N) {
-  return 2 * sizeof(Tri) + 2 * sizeof(Staged) + (size_t)N * 21 +
-         (size_t)(N / L + 1) * 8;
-}
-
 __device__ __forceinline__ void write_empty(const Out& o, int i0, int i1,
                                             int step) {
   for (int i = i0; i < i1; i += step) {
@@ -202,11 +287,18 @@ __device__ __forceinline__ void write_empty(const Out& o, int i0, int i1,
 }
 
 // The block at b0's rows into t's record, by one warp (rows lane and
-// lane + 32).
-__device__ void record(const Frag& g, int b0, Tri& t, int lane) {
+// lane + 32).  SCAN: rows from N on are recorded without valid or lane
+// bits.
+template <bool SCAN>
+__device__ void record(const Frag& g, int b0, Tri& t, int lane, int N) {
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int l = lane + 32 * s, i = b0 + l;
+    if (SCAN && i >= N) {
+      t.rc[l] = make_int4(0, 0, 0, 0);
+      t.rx[l] = make_int2(0, 0);
+      continue;
+    }
     t.rc[l] = make_int4(g.qS[i], g.qE[i], g.tS[i], g.tE[i]);
     t.rx[l] = make_int2(__float_as_int(g.score[i]),
                         g.lane1[i] | (g.lane2[i] << 1) | (g.valid[i] << 2));
@@ -221,8 +313,9 @@ __device__ void record(const Frag& g, int b0, Tri& t, int lane) {
 // from the record.  A row's lane bits are the same on every lane that
 // takes it, so a lane's costs are computed in a branch uniform over the
 // warp (either row has that lane) and masked per lane.
-__device__ void triangle(Tri& t, int nr, const Cost& cost, int w, int nw,
-                         int lane) {
+template <bool SCAN>
+__device__ void triangle(Tri& t, int nr, const Cost<SCAN>& cost, int w,
+                         int nw, int lane) {
   for (int k = w; k < L / 2; k += nw) {
     const int ra = k + 1, rb = L - ra;
     if (ra >= nr) break;  // rows from nr on are never read
@@ -248,7 +341,8 @@ __device__ void triangle(Tri& t, int nr, const Cost& cost, int w, int nw,
       for (int s = 0; s < 2; ++s) {
         const int4 xr = isa[s] ? xa : xb;  // (qS, qE, tS, tE)
         const int fr = isa[s] ? fa : fb;
-        const float c = cost(xr.z - xr.x, xc[s].w - xc[s].y);
+        const float c = cost(dsub<SCAN>(xr.z, xr.x),
+                             dsub<SCAN>(xc[s].w, xc[s].y));
         if (act[s] && (fr & fc[s] & 1) && xc[s].y <= xr.x && xc[s].w <= xr.z)
           tc1[s] = c;
       }
@@ -258,7 +352,8 @@ __device__ void triangle(Tri& t, int nr, const Cost& cost, int w, int nw,
       for (int s = 0; s < 2; ++s) {
         const int4 xr = isa[s] ? xa : xb;
         const int fr = isa[s] ? fa : fb;
-        const float c = cost(xr.w + xr.x, xc[s].z + xc[s].y);
+        const float c = cost(dadd<SCAN>(xr.w, xr.x),
+                             dadd<SCAN>(xc[s].z, xc[s].y));
         if (act[s] && (fr & fc[s] & 2) && xc[s].y <= xr.x && xc[s].z >= xr.w)
           tc2[s] = c;
       }
@@ -297,14 +392,16 @@ struct Running {
 // V left, pm, is below best (w <= 0: no such entry can win or tie).
 // Entries come last row first, so a candidate replaces the best when
 // larger, or equal at a smaller row: the first index.  NEAR: every
-// receiver lies in the block recorded in near (at b0).
-template <bool NEAR>
+// receiver lies in the block recorded in near (at b0).  SCAN: the skip
+// and the stop only where the set-up found every penalty >= 0.
+template <bool NEAR, bool SCAN>
 __device__ void fold(const Frag& g, const Staged& st, const Tri& near,
                      int b0, const uint16_t* const* rcv, int a0, int e0,
-                     int a1, int e1, const Running& rb, const Cost& cost,
-                     int t, int T) {
+                     int a1, int e1, const Running& rb,
+                     const Cost<SCAN>& cost, int t, int T) {
   const int n0 = e0 - a0, n = n0 + e1 - a1;
   if (n <= 0) return;
+  const bool prune = !SCAN || s_prune;
   int S = 1;
   while (S < 32 && 2 * S * n <= T) S <<= 1;
   const int G = T / S, sub = t & (S - 1), slot = t / S;
@@ -330,15 +427,15 @@ __device__ void fold(const Frag& g, const Staged& st, const Tri& near,
         tE = g.tE[row];
       }
       const int tb = lk ? tE : tS;
-      const int d = lk ? tE + qS : tS - qS;
+      const int d = lk ? dadd<SCAN>(tE, qS) : dsub<SCAN>(tS, qS);
       const int4* ent = st.ent[lk];
       const float* pm = st.pm[lk];
       for (int e = st.cnt[lk] - 1 - sub; e >= 0; e -= S) {
-        if (pm[e] < best) break;
+        if (prune && pm[e] < best) break;
         const int4 x = ent[e];
         const float vj = __int_as_float(x.w);
         const bool tok = lk ? x.y >= tb : x.y <= tb;
-        if (vj >= best && x.x <= qS && tok) {
+        if ((!prune || vj >= best) && x.x <= qS && tok) {
           const float c = vj + cost(d, x.z);
           if (c >= best) {
             const int j = st.j[lk][e];
@@ -370,8 +467,10 @@ __device__ void fold(const Frag& g, const Staged& st, const Tri& near,
 // (none when null), the in-block pass over t's weights, the outputs to o,
 // and the block's valid rows staged into st (when not null).
 // Rows from nr on are past the problem's last valid or lane bit: (NEG, -1,
-// 0), no pass.
-__device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
+// 0), no pass.  SCAN: rows from nw on (past N) are not written, and an
+// in-block winner's lane comes from the two sums at its column.
+template <bool SCAN>
+__device__ void resolve(const Out& o, int b0, int nr, int nw, const Tri& t,
                         const Running* rb, Staged* st, int lane) {
   // per row: score (NEG when invalid), cross-block best, first index and
   // lane, in-block best and first column
@@ -447,17 +546,52 @@ __device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
   }
   // outputs from each row's final state
   float v[2];
+  if constexpr (SCAN) {
+    bool use_in[2], take[2];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int l = 2 * lane + s, i = b0 + l;
-    const bool use_in = inb[s] > bv[s];
-    const float best = fmaxf(inb[s], bv[s]);
-    const bool take = best > 0.f && l < nr;
-    v[s] = fl[s] & 4 ? sc[s] + (take ? best : 0.f) : NEG;
-    const int il = t.l2[l] >> ina[s] & 1 ? 2 : 1;
-    o.V[i] = v[s];
-    o.bp[i] = take ? (use_in ? b0 + ina[s] : ba[s]) : -1;
-    o.lane[i] = take ? (use_in ? il : bl[s]) : 0;
+    for (int s = 0; s < 2; ++s) {
+      const int l = 2 * lane + s;
+      use_in[s] = inb[s] > bv[s];
+      const float best = fmaxf(inb[s], bv[s]);
+      take[s] = best > 0.f && l < nr;
+      v[s] = fl[s] & 4 ? sc[s] + (take[s] ? best : 0.f) : NEG;
+    }
+    const Cost<SCAN> cost;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int l = 2 * lane + s, i = b0 + l, c = ina[s];
+      // the winning column's V (row c: lane c / 2, its row c % 2)
+      const float x0 = __shfl_sync(FULL, v[0], c >> 1);
+      const float x1 = __shfl_sync(FULL, v[1], c >> 1);
+      const float vc = c & 1 ? x1 : x0;
+      // its weights: w = max(w1, w2) from the triangle and w1 as the
+      // triangle computed it, from the two rows' records
+      const int4 xr = t.rc[l], xc = t.rc[c];
+      const float w1 =
+          (t.rx[l].y & t.rx[c].y & 1) && xc.y <= xr.x && xc.w <= xr.z
+              ? cost(dsub<SCAN>(xr.z, xr.x), dsub<SCAN>(xc.w, xc.y))
+              : NEG;
+      const float w = t.w[tri_off(c) + max(l - c - 1, 0)];
+      const bool two = (t.l2[l] >> c & 1) && vc + w > vc + w1;
+      if (l < nw) {
+        o.V[i] = v[s];
+        o.bp[i] = take[s] ? (use_in[s] ? b0 + c : ba[s]) : -1;
+        o.lane[i] = take[s] ? (use_in[s] ? (two ? 2 : 1) : bl[s]) : 0;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int l = 2 * lane + s, i = b0 + l;
+      const bool use_in = inb[s] > bv[s];
+      const float best = fmaxf(inb[s], bv[s]);
+      const bool take = best > 0.f && l < nr;
+      v[s] = fl[s] & 4 ? sc[s] + (take ? best : 0.f) : NEG;
+      const int il = t.l2[l] >> ina[s] & 1 ? 2 : 1;
+      o.V[i] = v[s];
+      o.bp[i] = take ? (use_in ? b0 + ina[s] : ba[s]) : -1;
+      o.lane[i] = take ? (use_in ? il : bl[s]) : 0;
+    }
   }
   if (!st) return;
   // stage the valid rows of each lane in row order (row 2k + s: lane k,
@@ -486,8 +620,8 @@ __device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
       const int l = 2 * lane + s, at = pos + (s ? h0 : 0);
       const int4 x = t.rc[l];  // (qS, qE, tS, tE)
       const int vb = __float_as_int(v[s]);
-      st->ent[k][at] = k ? make_int4(x.y, x.z, x.z + x.y, vb)
-                         : make_int4(x.y, x.w, x.w - x.y, vb);
+      st->ent[k][at] = k ? make_int4(x.y, x.z, dadd<SCAN>(x.z, x.y), vb)
+                         : make_int4(x.y, x.w, dsub<SCAN>(x.w, x.y), vb);
       st->j[k][at] = b0 + l;
       st->pm[k][at] = s ? m : fmaxf(before, m0);
     }
@@ -495,66 +629,103 @@ __device__ void resolve(const Out& o, int b0, int nr, const Tri& t,
   }
 }
 
-// Warp tier (N = L): one problem per block of one warp, its Tri in
-// dynamic shared memory.
-__global__ void __launch_bounds__(32)
-sdp_blocked_warp_kernel(Frag f, Out o, Pwl ph) {
+// Warp tier (N = L; K8: N <= L): one problem per block of one warp, its
+// Tri in dynamic shared memory; the PWL tables loaded and a barrier
+// passed.
+template <bool SCAN>
+__device__ __forceinline__ void warp_body(const Frag& f, const Out& o,
+                                          int N) {
   extern __shared__ int4 dyn[];
-  pwl_load(s_pw, ph);
-  pwl_buckets_load(s_pb, threadIdx.x, blockDim.x);
-  __syncthreads();
-  const Cost cost;
+  const Cost<SCAN> cost;
   const int lane = threadIdx.x;
   Tri& t = *reinterpret_cast<Tri*>(dyn);
-  const size_t off = (size_t)blockIdx.x * L;
+  const size_t off = (size_t)blockIdx.x * N;
   const Frag g = f.at(off);
   const Out q = o.at(off);
   // n_eff: past the last row with a valid or lane bit, the answer is the
   // constant (NEG, -1, 0)
-  const unsigned a0 =
-      __ballot_sync(FULL, g.valid[lane] | g.lane1[lane] | g.lane2[lane]);
+  const unsigned a0 = __ballot_sync(
+      FULL, SCAN && lane >= N ? 0
+                              : g.valid[lane] | g.lane1[lane] | g.lane2[lane]);
   const unsigned a1 = __ballot_sync(
-      FULL, g.valid[lane + 32] | g.lane1[lane + 32] | g.lane2[lane + 32]);
+      FULL, SCAN && lane + 32 >= N ? 0
+                                   : g.valid[lane + 32] | g.lane1[lane + 32] |
+                                         g.lane2[lane + 32]);
   const int nr = a1 ? 64 - __clz(a1) : 32 - __clz(a0);
   if (nr == 0) {
-    write_empty(q, lane, L, 32);
+    write_empty(q, lane, N, 32);
     return;
   }
-  record(g, 0, t, lane);
+  record<SCAN>(g, 0, t, lane, N);
   __syncwarp();
-  triangle(t, nr, cost, 0, 1, lane);
+  triangle<SCAN>(t, nr, cost, 0, 1, lane);
   __syncwarp();
-  resolve(q, 0, nr, t, nullptr, nullptr, lane);
+  resolve<SCAN>(q, 0, nr, N, t, nullptr, nullptr, lane);
 }
 
-// CTA tier (N >= 2L): one problem per block.  Dynamic shared memory:
-// Tri[2], Staged[2], the running bests (value and index per lane and
-// row), the receiver lists per lane, their block starts [2][N/L + 1] and
-// the rows' lane bits (cta_smem).
-__global__ void __launch_bounds__(MAXT)
-sdp_blocked_cta_kernel(Frag f, Out o, Pwl ph, int N) {
+__global__ void __launch_bounds__(32)
+sdp_blocked_warp_kernel(Frag f, Out o, Pwl ph) {
+  pwl_load(s_pw, ph);
+  pwl_buckets_load(s_pb, threadIdx.x, blockDim.x);
+  __syncthreads();
+  warp_body<false>(f, o, L);
+}
+
+__global__ void __launch_bounds__(32) scan_warp_kernel(Frag f, Out o,
+                                                       Scan sc) {
+  scan_pwl_load(sc);
+  pwl_buckets_load(s_pb, threadIdx.x, blockDim.x);
+  __syncthreads();
+  warp_body<true>(f, o, sc.N);
+}
+
+// The CTA tier's running bests (value and index per lane and row), the
+// receiver lists (uint16 per lane and row), their block starts [2][Np/L +
+// 1] and the rows' lane bits, for Np rows (Np: N in whole blocks).
+__host__ __device__ inline size_t lists_bytes(int Np) {
+  return (size_t)Np * 21 + (size_t)(Np / L + 1) * 8;
+}
+
+// K8's tier 2: a problem's lists in device scratch, 16-byte aligned
+__host__ __device__ inline size_t scan_scratch(int Np) {
+  return (lists_bytes(Np) + 15) / 16 * 16;
+}
+
+// CTA tier (N >= 2L; K8: N > L): one problem per block.  Dynamic shared
+// memory: Tri[2], Staged[2] and the lists (cta_smem; K8's tier 2,
+// SCRATCH: the lists in device scratch).
+template <bool SCAN, bool SCRATCH>
+__device__ __forceinline__ void cta_body(const Frag& f, const Out& o,
+                                         const Pwl& ph, const Scan& scan,
+                                         int N) {
   extern __shared__ int4 dyn[];
   __shared__ int s_last;
+  const int Np = SCAN ? (N + L - 1) / L * L : N;
   Tri* tri = reinterpret_cast<Tri*>(dyn);
   Staged* st = reinterpret_cast<Staged*>(tri + 2);
-  float* rbv = reinterpret_cast<float*>(st + 2);
-  int* rba = reinterpret_cast<int*>(rbv + 2 * N);
-  uint16_t* rc = reinterpret_cast<uint16_t*>(rba + 2 * N);
-  int* rstart = reinterpret_cast<int*>(rc + 2 * N);
-  uint8_t* fl = reinterpret_cast<uint8_t*>(rstart + 2 * (N / L + 1));
-  const Running rb = {{rbv, rbv + N}, {rba, rba + N}};
-  const uint16_t* const rcv[2] = {rc, rc + N};
-  const int NB1 = N / L + 1;
+  float* rbv = SCRATCH ? reinterpret_cast<float*>(
+                             scan.scratch + blockIdx.x * scan_scratch(Np))
+                       : reinterpret_cast<float*>(st + 2);
+  int* rba = reinterpret_cast<int*>(rbv + 2 * Np);
+  uint16_t* rc = reinterpret_cast<uint16_t*>(rba + 2 * Np);
+  int* rstart = reinterpret_cast<int*>(rc + 2 * Np);
+  uint8_t* fl = reinterpret_cast<uint8_t*>(rstart + 2 * (Np / L + 1));
+  const Running rb = {{rbv, rbv + Np}, {rba, rba + Np}};
+  const uint16_t* const rcv[2] = {rc, rc + Np};
+  const int NB1 = Np / L + 1;
   const int tid = threadIdx.x, NT = blockDim.x, lane = tid & 31;
   const int warp = tid >> 5;
-  pwl_load(s_pw, ph);
+  if constexpr (SCAN)
+    scan_pwl_load(scan);
+  else
+    pwl_load(s_pw, ph);
   pwl_buckets_load(s_pb, tid, NT);
   if (tid == 0) s_last = -1;
   __syncthreads();
   const size_t off = (size_t)blockIdx.x * N;
   const Frag g = f.at(off);
   const Out q = o.at(off);
-  const Cost cost;
+  const Cost<SCAN> cost;
   // n_eff: past the last row with a valid or lane bit, the answer is
   // the constant (NEG, -1, 0); the lane bits kept for the lists
   int last = -1;
@@ -563,9 +734,11 @@ sdp_blocked_cta_kernel(Frag f, Out o, Pwl ph, int N) {
     fl[i] = x;
     if (x | g.valid[i]) last = i;
   }
+  if (SCAN)  // the last block's rows past N: no lane bit
+    for (int i = N + tid; i < Np; i += NT) fl[i] = 0;
   // block 0's record, its loads beside the scan's (harmless when the
   // problem turns out empty)
-  if (warp == 1) record(g, 0, tri[0], lane);
+  if (warp == 1) record<SCAN>(g, 0, tri[0], lane, N);
 #pragma unroll
   for (int o2 = 16; o2 > 0; o2 >>= 1)
     last = max(last, __shfl_xor_sync(FULL, last, o2));
@@ -588,7 +761,7 @@ sdp_blocked_cta_kernel(Frag f, Out o, Pwl ph, int N) {
       const unsigned m1 = __ballot_sync(FULL, h1);
       const unsigned m2 = __ballot_sync(FULL, h2);
       if (h1) rc[c0 + __popc(m1 & lt)] = (uint16_t)i;
-      if (h2) rc[N + c1 + __popc(m2 & lt)] = (uint16_t)i;
+      if (h2) rc[Np + c1 + __popc(m2 & lt)] = (uint16_t)i;
       c0 += __popc(m1);
       c1 += __popc(m2);
     }
@@ -599,60 +772,89 @@ sdp_blocked_cta_kernel(Frag f, Out o, Pwl ph, int N) {
   }
   for (int i = tid; i < nb * L; i += NT) {
     rbv[i] = NEG;
-    rbv[N + i] = NEG;
+    rbv[Np + i] = NEG;
     rba[i] = 0;
-    rba[N + i] = 0;
+    rba[Np + i] = 0;
   }
-  triangle(tri[0], min(neff, L), cost, warp, NT >> 5, lane);
+  triangle<SCAN>(tri[0], min(neff, L), cost, warp, NT >> 5, lane);
   __syncthreads();
   for (int b = 0; b < nb; ++b) {
     const int b0 = b * L;
     const Staged& prev = st[(b + 1) & 1];  // block b - 1
     // A: block b-1 into block b's receivers
     if (b > 0)
-      fold<true>(g, prev, tri[b & 1], b0, rcv, rstart[b], rstart[b + 1],
-                 rstart[NB1 + b], rstart[NB1 + b + 1], rb, cost, tid,
-                 NT);
+      fold<true, SCAN>(g, prev, tri[b & 1], b0, rcv, rstart[b],
+                       rstart[b + 1], rstart[NB1 + b], rstart[NB1 + b + 1],
+                       rb, cost, tid, NT);
     __syncthreads();
     // B: resolve block b; beside it, block b-1 into every later block's
     // receivers and block b+1's rows and triangle
     if (warp == 0) {
-      resolve(q, b0, min(neff - b0, L), tri[b & 1], &rb, &st[b & 1], lane);
+      resolve<SCAN>(q, b0, min(neff - b0, L), N - b0, tri[b & 1], &rb,
+                    &st[b & 1], lane);
     } else {
       // block b+1's record first (its loads overlap the fold), the
       // folders' named barrier 1, then its triangle
       const bool next = b + 1 < nb;
-      if (next && warp == 1) record(g, b0 + L, tri[(b + 1) & 1], lane);
+      if (next && warp == 1)
+        record<SCAN>(g, b0 + L, tri[(b + 1) & 1], lane, N);
       if (b > 0)
-        fold<false>(g, prev, tri[b & 1], b0, rcv, rstart[b + 1],
-                    rstart[nb], rstart[NB1 + b + 1], rstart[NB1 + nb], rb,
-                    cost, tid - 32, NT - 32);
+        fold<false, SCAN>(g, prev, tri[b & 1], b0, rcv, rstart[b + 1],
+                          rstart[nb], rstart[NB1 + b + 1], rstart[NB1 + nb],
+                          rb, cost, tid - 32, NT - 32);
       if (next) {
         asm volatile("bar.sync 1, %0;" ::"r"(NT - 32) : "memory");
-        triangle(tri[(b + 1) & 1], min(neff - b0 - L, L), cost, warp - 1,
-                 (NT >> 5) - 1, lane);
+        triangle<SCAN>(tri[(b + 1) & 1], min(neff - b0 - L, L), cost,
+                       warp - 1, (NT >> 5) - 1, lane);
       }
     }
     __syncthreads();
   }
 }
 
-// Let the CTA tier's kernel take the shared memory of its largest
-// bucket, once per device (a launch's own need is checked against
-// cta_smem(N)).
-cudaError_t allow_cta_smem() {
-  static std::atomic<unsigned long long> done{0};  // a bit per device
+__global__ void __launch_bounds__(MAXT)
+sdp_blocked_cta_kernel(Frag f, Out o, Pwl ph, int N) {
+  cta_body<false, false>(f, o, ph, Scan{}, N);
+}
+
+template <bool SCRATCH>
+__global__ void __launch_bounds__(MAXT)
+scan_cta_kernel(Frag f, Out o, Scan sc) {
+  cta_body<true, SCRATCH>(f, o, Pwl{}, sc, sc.N);
+}
+
+// the CTA tier's dynamic shared memory for Np rows (ops/sdp_blocked.py's
+// sdp_plan and ops/sdp.py's scan_plan compute the same)
+template <bool SCRATCH>
+__host__ __device__ inline size_t cta_smem(int Np) {
+  return 2 * sizeof(Tri) + 2 * sizeof(Staged) +
+         (SCRATCH ? 0 : lists_bytes(Np));
+}
+
+constexpr int SMEM_MAX = 232448;
+
+// Let a kernel take `bytes` of dynamic shared memory (0: all that its
+// static tables leave of SMEM_MAX), once per device (done: a bit per
+// device; a launch's own need is checked by its entry point, and a
+// launch past the limit fails).
+cudaError_t allow_smem(const void* kern, int bytes,
+                       std::atomic<unsigned long long>& done) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (done.load() >> dev & 1) return cudaSuccess;
-  e = cudaFuncSetAttribute((const void*)sdp_blocked_cta_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)cta_smem(8192));
+  if (bytes == 0) {
+    cudaFuncAttributes a;
+    if ((e = cudaFuncGetAttributes(&a, kern)) != cudaSuccess) return e;
+    bytes = SMEM_MAX - (int)a.sharedSizeBytes;
+  }
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
   if (e == cudaSuccess) done.fetch_or(1ull << dev);
   return e;
 }
+constexpr int SCAN_MAX_N = 65536;  // uint16 rows in the lists
 
 }  // namespace
 
@@ -686,12 +888,67 @@ extern "C" int lra_chain_scores_blocked(
       return (int)cudaErrorInvalidValue;
     sdp_blocked_warp_kernel<<<B, threads, smem, s>>>(f, o, p);
   } else if (tier == 1) {
-    if (threads < 64 || (size_t)smem < cta_smem(N) ||
-        (size_t)smem > cta_smem(8192))
+    const size_t most = cta_smem<false>(8192);
+    if (threads < 64 || (size_t)smem < cta_smem<false>(N) ||
+        (size_t)smem > most)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_cta_smem();
+    static std::atomic<unsigned long long> done{0};
+    const cudaError_t e =
+        allow_smem((const void*)sdp_blocked_cta_kernel, (int)most, done);
     if (e != cudaSuccess) return (int)e;
     sdp_blocked_cta_kernel<<<B, threads, smem, s>>>(f, o, p, N);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K8: qS, qE, tS, tE: int32 [B, N]; score: f32; lane1, lane2, valid:
+// uint8; slope, inter: f32 [24] on the device; V: f32, bp, lane: int32
+// [B, N]; scratch: tier 2's, B * scan_scratch(Np) bytes (else unused);
+// c1, c2: the ceilings (f32).  tier (0 warp, 1 CTA, 2 CTA with the lists
+// in scratch), threads and smem from ops/sdp.py:scan_plan.  One thread
+// block a problem.
+extern "C" int lra_chain_scores_scan(
+    const void* qS, const void* qE, const void* tS, const void* tE,
+    const void* score, const void* lane1, const void* lane2,
+    const void* valid, const void* slope, const void* inter, void* V,
+    void* bp, void* lane, void* scratch, float c1, float c2, int B, int N,
+    int tier, int threads, int smem, void* stream) {
+  if (B == 0 || N == 0) return 0;
+  if (N < 0 || N > SCAN_MAX_N || threads < 32 || threads % 32 ||
+      threads > MAXT || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int Np = (N + L - 1) / L * L;
+  const Frag f = {(const int*)qS,       (const int*)qE,
+                  (const int*)tS,       (const int*)tE,
+                  (const float*)score,  (const uint8_t*)lane1,
+                  (const uint8_t*)lane2, (const uint8_t*)valid};
+  const Out o = {(float*)V, (int*)bp, (int*)lane};
+  const Scan sc = {(const float*)slope, (const float*)inter, c1, c2, N,
+                   (uint8_t*)scratch};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tier == 0) {
+    if (N > L || threads != 32 || (size_t)smem < sizeof(Tri))
+      return (int)cudaErrorInvalidValue;
+    scan_warp_kernel<<<B, threads, smem, s>>>(f, o, sc);
+  } else if (tier == 1) {
+    if (N <= L || threads < 64 || (size_t)smem < cta_smem<false>(Np))
+      return (int)cudaErrorInvalidValue;
+    static std::atomic<unsigned long long> done{0};
+    const cudaError_t e =
+        allow_smem((const void*)scan_cta_kernel<false>, 0, done);
+    if (e != cudaSuccess) return (int)e;
+    scan_cta_kernel<false><<<B, threads, smem, s>>>(f, o, sc);
+  } else if (tier == 2) {
+    if (N <= L || threads < 64 || scratch == nullptr ||
+        (size_t)smem < cta_smem<true>(Np))
+      return (int)cudaErrorInvalidValue;
+    static std::atomic<unsigned long long> done{0};
+    const cudaError_t e =
+        allow_smem((const void*)scan_cta_kernel<true>, 0, done);
+    if (e != cudaSuccess) return (int)e;
+    scan_cta_kernel<true><<<B, threads, smem, s>>>(f, o, sc);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -35,7 +35,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("sdp_blocked", "banded_global", "banded_refine", "one_gap",
-           "chain_mask", "sdp_windowed", "sdp_scan", "banded_arrows")
+           "chain_mask", "sdp_windowed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

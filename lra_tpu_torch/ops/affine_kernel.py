@@ -16,11 +16,11 @@ traceback walks from (qlen, tlen) on the device, one op per step, and
 the ops come back packed 2 bits each (LEFT/DOWN/DIAG = 1/2/3, 0 = end).
 
 ``banded_global_traced_packed``, ``banded_refine_traced_packed`` and
-``banded_global_kernel`` launch the CUDA kernels (csrc/banded_global.cu,
-csrc/banded_refine.cu, csrc/banded_arrows.cu; ``global_plan`` and
-``refine_plan`` choose the first two's launch plans) for CUDA tensors
-and run their plain torch twins (``*_plain``, a python loop over rows
-and over traceback steps) for CPU tensors.  All DP values
+``banded_global_kernel`` launch the CUDA kernels (K4 and K9 in
+csrc/banded_global.cu, K5 in csrc/banded_refine.cu; ``global_plan``,
+``arrows_plan`` and ``refine_plan`` choose their launch plans) for CUDA
+tensors and run their plain torch twins (``*_plain``, a python loop over
+rows and over traceback steps) for CPU tensors.  All DP values
 are small integers in f32, so the two agree exactly.  The numpy mirrors
 below (``banded_global_np``, ``banded_refine_np`` and the host
 tracebacks) are the host path's.
@@ -206,22 +206,17 @@ def banded_global_kernel_plain(q, t, qlen, tlen, K, m, mm, indel, kband):
     return score, arrows.permute(1, 0, 2).contiguous()
 
 
-_ARROWS_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+_ARROWS_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
 
 
-def arrows_threads(K: int) -> int:
-    """Threads of csrc/banded_arrows.cu's CTA for a band of 2K+1 cells:
-    one a cell in whole warps, at most 1024."""
-    return min(1024, 32 * ((2 * K + 1 + 31) // 32))
-
-
-def _arrows_cuda(q, t, qlen, tlen, kband, K, m, mm, indel):
+def _arrows_cuda(q, t, qlen, tlen, kband, K, m, mm, indel, plan=None):
+    """K9 on the card with arrows_plan's plan for this bucket (or the one
+    given); arrows_launch sizes its shared memory for this T."""
     B, Q = q.shape
     T = t.shape[1]
     band = 2 * K + 1
-    if 16 * band + 16 * ((band + 15) // 16) > SMEM_MAX:
-        raise ValueError(f"banded_global_kernel: band {band} does not fit "
-                         "in shared memory")
+    args = (_arrows_args(K, B, T, _ext.sm_count(q.device.index or 0))
+            if plan is None else _arrows_plan_args(plan, K, T))
     _ext.check("q", q, torch.int8, (B, Q))
     _ext.check("t", t, torch.int8, (B, T))
     for name, x in (("qlen", qlen), ("tlen", tlen), ("kband", kband)):
@@ -231,12 +226,24 @@ def _arrows_cuda(q, t, qlen, tlen, kband, K, m, mm, indel):
                          device=q.device)
     if B == 0:
         return score, arrows
+    counter = torch.empty(4, dtype=torch.int32, device=q.device)
     p = _ext.ptr
-    _ext.launch("banded_global_kernel", "banded_arrows", "lra_banded_arrows",
+    _ext.launch("banded_global_kernel", "banded_global", "lra_banded_arrows",
                 _ARROWS_ARGS, p(q), p(t), p(qlen), p(tlen), p(kband),
-                p(score), p(arrows), B, Q, T, K, int(m), int(mm), int(indel),
-                arrows_threads(K))
+                p(score), p(arrows), p(counter), B, Q, T, K, int(m),
+                int(mm), int(indel), *args)
     return score, arrows
+
+
+def _arrows_plan_args(plan: dict, K: int, T: int) -> tuple:
+    sp, smem = arrows_launch(plan, K, T)
+    return (plan["CPT"], plan["WP"], plan["PPC"], sp, plan["threads"],
+            smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _arrows_args(K: int, B: int, T: int, sms: int) -> tuple:
+    return _arrows_plan_args(arrows_plan(K, B, sms), K, T)
 
 
 def banded_global_traced(q, t, qlen, tlen, K, m, mm, indel, kband=None):
@@ -608,6 +615,69 @@ def global_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
     group = 2 * R * P + (32 * wp if wp > 1 else 0) + 16
     return {"CPT": cpt, "WP": wp, "PPC": ppc, "P": P, "R": R,
             "smem": ppc * group, "threads": 32 * wp * ppc}
+
+
+_ARROWS_ROWS_MAX_K = 1023   # K9: the widest band on K4's warp rows
+_ARROWS_STAGE = 64 * 1024   # K9: staged planes a block, bytes at most
+
+
+def _arrows_cta_smem(band: int) -> int:
+    return 16 * band + 16 * (-(-band // 16))
+
+
+def arrows_plan(K: int, B: int | None = None, sms: int = 132) -> dict:
+    """Launch plan of K9 (csrc/banded_global.cu's lra_banded_arrows) for
+    B problems with a band of 2K+1 cells on a card of `sms` SMs.  Up to
+    K = 1023, K4's warp rows (tier "rows"): global_plan's CPT, WP and
+    problems per block (_tier, _per_block), a persistent grid, each
+    group staging its problem's arrow plane in shared memory while the
+    block's planes fit in `stage` bytes (arrows_launch).  Past it, the
+    CTA tier ("cta", CPT 0): a CTA of one thread a cell (at most 1024) a
+    problem, its rows in shared memory, up to the widest band whose
+    rows fit there (K = 6836).  Raises past that."""
+    band = 2 * K + 1
+    if K < 0:
+        raise ValueError(f"banded_global_kernel: K={K} < 0")
+    if K <= _ARROWS_ROWS_MAX_K:
+        cpt, wp = _tier(K)
+        ppc = _per_block(wp, B, sms)
+        return {"tier": "rows", "CPT": cpt, "WP": wp, "PPC": ppc,
+                "threads": 32 * wp * ppc, "stage": _ARROWS_STAGE}
+    if _arrows_cta_smem(band) > SMEM_MAX:
+        raise ValueError(f"banded_global_kernel: band {band} does not fit "
+                         "in shared memory")
+    return {"tier": "cta", "CPT": 0, "WP": 1, "PPC": 1,
+            "threads": min(1024, 32 * (-(-band // 32))), "stage": 0}
+
+
+def arrows_launch(plan: dict, K: int, T: int) -> tuple:
+    """(SP, smem) of a K9 launch of `plan` on rows 0..T: a problem's
+    staging bytes (its (T+1) * (2K+1) plane and 15 bytes of alignment
+    slack, in 16-byte units; 0 when the block's PPC planes exceed the
+    plan's stage bytes: each row then goes to the output as it finishes)
+    and the block's dynamic shared memory (per problem the WP > 1
+    exchange slots, the stage and two problem indices).  The CTA tier
+    stages no plane."""
+    band = 2 * K + 1
+    if plan["tier"] == "cta":
+        return 0, _arrows_cta_smem(band)
+    xch = 32 * plan["WP"] if plan["WP"] > 1 else 0
+    sp = -(-((T + 1) * band + 15) // 16) * 16
+    if plan["PPC"] * (xch + sp + 16) > plan["stage"]:
+        sp = 0
+    return sp, plan["PPC"] * (xch + sp + 16)
+
+
+def arrows_plan_variants(K: int) -> list:
+    """K9's plans at K, by name, for the tests: one problem a block and
+    a full bucket's problems a block (the same at WP = 8, and in the CTA
+    tier)."""
+    out = []
+    for name, B in (("1 a block", 1), ("full bucket", 1 << 20)):
+        p = arrows_plan(K, B)
+        if p not in [q for _, q in out]:
+            out.append((name, p))
+    return out
 
 
 _PLANNED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14

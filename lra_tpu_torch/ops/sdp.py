@@ -6,8 +6,9 @@ the fragments in index order, batched over problems; the pipeline's
 chaining runs the blocked kernel (ops/sdp_blocked.py, K2) and the
 windowed one (ops/sdp_windowed.py, K7), and this scan is the public op
 that the data-parallel mesh (parallel/mesh.py) and its tests call.  It
-launches the CUDA kernel (csrc/sdp_scan.cu) for CUDA tensors and runs
-``chain_scores_plain`` for CPU tensors; the two agree bit for bit.  The
+launches K2's kernel in its scan instance (csrc/sdp_blocked.cu, on
+``scan_plan``'s tier) for CUDA tensors and runs ``chain_scores_plain``
+for CPU tensors; the two agree bit for bit.  The
 module also keeps lra_tpu's single-problem oracle (the host path's
 chaining, use_device=False) and the host traceback.  They replace the
 reference's event-sweep SDP (reference: SparseDP.h:1766-2440) with the
@@ -35,12 +36,15 @@ SparseDP.h:1957-2040), SDP-2 inserts one lane per strand
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from . import _ext
-from .gapcost import GapParams, pwl_torch
+from .gapcost import STOPS, GapParams, pwl_torch
+from .sdp_blocked import (_FRAG_DTYPES, _FRAG_NAMES, _STAGED_BYTES,
+                          _TRI_BYTES, SMEM_MAX)
 
 NEG = -3.0e38    # float32(-3e38): V of a row not yet scanned, or invalid
 
@@ -101,30 +105,104 @@ def chain_scores_plain(qS, qE, tS, tE, score, lane1, lane2, valid,
     return V, bp, lane
 
 
-_SCAN_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_float] * 2 + \
-    [ctypes.c_int] * 3
-_SCAN_THREADS = 256
+_SCAN_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_float] * 2 + \
+    [ctypes.c_int] * 5
+_SCAN_KEYS = ("tier", "threads", "smem")
+SCAN_MAX_N = 65536          # the receiver lists hold uint16 rows
+# the CTA tier's static shared memory (the PWL tables, two ints; ptxas):
+# its dynamic shared memory is what they leave of SMEM_MAX
+_SCAN_STATIC_SMEM = 4048
 
 
-def scan_smem(N: int) -> int:
-    """Dynamic shared memory of csrc/sdp_scan.cu for N rows: the 24
-    slopes and intercepts, the reduction slots, and V with the
-    per-fragment columns (qE, tS, tE, d1e, d2e, flags; 25 bytes a row)
-    while they fit, else none (the columns are read from global
-    memory)."""
-    fixed = 2 * 24 * 4 + 2 * 32 * 8
-    cols = 25 * N
-    return fixed + cols if fixed + cols <= _ext.SMEM_MAX else fixed
+def _lists_bytes(Np: int) -> int:
+    """The CTA tier's running bests, receiver lists, block starts and
+    lane bits for Np rows (csrc/sdp_blocked.cu: lists_bytes)."""
+    return 21 * Np + 8 * (Np // 64 + 1)
+
+
+def scan_plan(N: int, tier: int | None = None) -> dict:
+    """Launch plan of K8 (csrc/sdp_blocked.cu's lra_chain_scores_scan, K2's
+    kernel in its SCAN instance) for a bucket of N rows, 1 <= N <=
+    SCAN_MAX_N: the tier, threads a block, dynamic shared memory and
+    device scratch a problem.  Tier 0 (N <= 64): one problem per block of
+    one warp.  Tier 1: one problem per block, K2's CTA tier with its
+    threads (128, up to 1024 at N / 2), the rows in whole blocks of 64 and
+    the lists in shared memory (N <= 9536).  Tier 2: the same with the
+    lists in device scratch (1024 threads).  `tier` forces tier 1 or 2
+    where it takes N (N > 64; tier 1 while it fits)."""
+    if not 1 <= N <= SCAN_MAX_N:
+        raise ValueError(f"chain_scores kernel: N={N} is not in 1.."
+                         f"{SCAN_MAX_N}")
+    if tier is None and N <= 64:
+        return {"tier": 0, "threads": 32, "smem": _TRI_BYTES,
+                "scratch": 0}
+    if N <= 64:
+        raise ValueError(f"chain_scores kernel: no tier {tier} at N={N}")
+    Np = -(-N // 64) * 64
+    fixed = 2 * _TRI_BYTES + 2 * _STAGED_BYTES
+    smem = fixed + _lists_bytes(Np)
+    most = SMEM_MAX - _SCAN_STATIC_SMEM
+    if tier == 1 or (tier is None and smem <= most):
+        if smem > most:
+            raise ValueError(f"chain_scores kernel: N={N} does not fit "
+                             "tier 1's shared memory")
+        return {"tier": 1, "threads": min(1024, max(128, Np // 2)),
+                "smem": smem, "scratch": 0}
+    return {"tier": 2, "threads": 1024, "smem": fixed,
+            "scratch": -(-_lists_bytes(Np) // 16) * 16}
+
+
+def scan_plan_variants(N: int) -> list:
+    """Every K8 plan at N, by name, for the tests: scan_plan's, and tier
+    2 (and tier 1 where it fits) above N = 64."""
+    out = [("scan_plan", scan_plan(N))]
+    if N > 64:
+        for t in (1, 2):
+            try:
+                p = scan_plan(N, tier=t)
+            except ValueError:
+                continue
+            if p not in [q for _, q in out]:
+                out.append((f"tier {t}", p))
+    return out
+
+
+def scan_prune_np(slope, inter, ceiling1, ceiling2) -> bool:
+    """Whether K8 may prune (csrc/sdp_blocked.cu: scan_pwl_load), computed
+    as the kernel's set-up computes it: every piece's penalty, pwl_jnp's
+    rounded multiply and add, the floor and the ceilings in f32, is >= 0
+    at both ends of its range of x >= 3.  On a piece the penalty is
+    monotone in x, so then every w = -PWL is <= 0."""
+    slope = np.asarray(slope, np.float32)
+    inter = np.asarray(inter, np.float32)
+    c1, c2 = np.float32(ceiling1), np.float32(ceiling2)
+    stops = [int(x) for x in STOPS]
+    imax = np.iinfo(np.int32).max
+    for p in range(len(slope)):
+        lo = 3 if p == 0 else stops[p]
+        hi = imax if p == len(slope) - 1 else stops[p + 1] - 1
+        for x in (lo, hi):
+            pen = np.floor(np.float32(slope[p] * np.float32(x)) + inter[p])
+            if c1 <= pen < c2:
+                pen = c1
+            if pen > c2:
+                pen = c2
+            if not pen >= 0:
+                return False
+    return True
 
 
 def _chain_scores_cuda(qS, qE, tS, tE, score, lane1, lane2, valid, slope,
-                       inter, ceiling1, ceiling2):
+                       inter, ceiling1, ceiling2, plan=None):
+    """K8 on the card with scan_plan's plan for this bucket (or the one
+    given).  slope and inter go to the device as they are (no host copy
+    of a device tensor: the kernel reads them there)."""
     B, N = qS.shape
     frags = (qS, qE, tS, tE, score, lane1, lane2, valid)
-    dtypes = (torch.int32,) * 4 + (torch.float32,) + (torch.bool,) * 3
-    for name, t, dt in zip(("qS", "qE", "tS", "tE", "score", "lane1",
-                            "lane2", "valid"), frags, dtypes):
-        _ext.check(name, t, dt, (B, N))
+    for name, t, dt in zip(_FRAG_NAMES, frags, _FRAG_DTYPES):
+        if not (t.is_cuda and t.dtype == dt and t.shape == (B, N)
+                and t.is_contiguous()):
+            _ext.check(name, t, dt, (B, N))     # raises, saying why
     dev = qS.device
     slope = torch.as_tensor(slope, dtype=torch.float32, device=dev)
     inter = torch.as_tensor(inter, dtype=torch.float32, device=dev)
@@ -135,13 +213,23 @@ def _chain_scores_cuda(qS, qE, tS, tE, score, lane1, lane2, valid, slope,
     lane = torch.empty((B, N), dtype=torch.int32, device=dev)
     if B == 0 or N == 0:
         return V, bp, lane
-    _ext.launch("chain_scores", "sdp_scan", "lra_chain_scores_scan",
+    args, scratch = _scan_plan_args(N) if plan is None else \
+        (tuple(plan[k] for k in _SCAN_KEYS), plan["scratch"])
+    buf = (torch.empty(B * scratch, dtype=torch.uint8, device=dev)
+           if scratch else None)
+    _ext.launch("chain_scores", "sdp_blocked", "lra_chain_scores_scan",
                 _SCAN_ARGS,
-                *[t.data_ptr() for t in frags + (slope, inter, V, bp,
-                                                 lane)],
+                *[t.data_ptr() for t in frags + (slope, inter, V, bp, lane)],
+                buf.data_ptr() if scratch else None,
                 float(np.float32(ceiling1)), float(np.float32(ceiling2)),
-                B, N, scan_smem(N))
+                B, N, *args)
     return V, bp, lane
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_plan_args(N: int) -> tuple:
+    plan = scan_plan(N)
+    return tuple(plan[k] for k in _SCAN_KEYS), plan["scratch"]
 
 
 # ------------------------------------------------------------------ host ---

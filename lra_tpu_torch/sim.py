@@ -183,6 +183,17 @@ def zero_slope_piece(slope, inter) -> tuple:
     return slope, inter
 
 
+def negative_piece(slope, inter) -> tuple:
+    """Copies of a GapParams' slope and inter (f32[24]) with piece 6 (x in
+    [100, 200)) a zero-slope piece of intercept -50: a negative penalty,
+    so that w = -PWL = +50 there and K8 may not prune
+    (ops/sdp.py:scan_prune_np is false)."""
+    slope = np.array(slope, np.float32)
+    inter = np.array(inter, np.float32)
+    slope[6], inter[6] = 0.0, -50.0
+    return slope, inter
+
+
 SCAN_KINDS = ("both_lanes", "one_lane", "invalid", "unsorted", "tie")
 
 
@@ -195,7 +206,20 @@ def scan_bucket(rng, B: int, N: int, kind: str) -> tuple:
     all of problem 1 (when B > 1) invalid, lane bits kept, so invalid
     rows still get bp and lane; "unsorted": the same in index order, not
     q order; "tie": tie-dense problems (tie_dense_chain_arrays) padded
-    with invalid laneless rows."""
+    with invalid laneless rows.  Also "big_scores": both lanes, fragments
+    whose t end lies before their t start (tE < tS, within 400 bp of
+    each other: a pair can then be a predecessor on both lanes at once,
+    at two different gaps) and scores near 2^25: V[j] + w1 and V[j] + w2
+    round equal where w2 > w1, and the lane must come from the sums."""
+    if kind == "big_scores":
+        ln = rng.integers(15, 300, (B, N))
+        qS = np.sort(rng.integers(0, 100 * N, (B, N)), axis=1)
+        tS = rng.integers(5000, 5400, (B, N))
+        return (qS.astype(np.int32), (qS + ln).astype(np.int32),
+                tS.astype(np.int32), (tS - ln).astype(np.int32),
+                (2.0 ** 25 + rng.integers(0, 64, (B, N))).astype(np.float32),
+                np.ones((B, N), bool), np.ones((B, N), bool),
+                np.ones((B, N), bool))
     if kind == "tie":
         cols = [np.zeros((B, N), np.int64) for _ in range(5)] + \
             [np.zeros((B, N), bool) for _ in range(3)]

@@ -28,8 +28,8 @@ from lra_tpu_torch.ops import _ext
 from lra_tpu_torch.parallel import mesh
 from lra_tpu_torch.sim import (contig_chain_arrays, mask_problems,
                                mesh_step_inputs, one_gap_problems,
-                               refine_problems, rowsync_problems,
-                               scan_bucket, sdp_bucket,
+                               negative_piece, refine_problems,
+                               rowsync_problems, scan_bucket, sdp_bucket,
                                tie_dense_chain_arrays, zero_slope_piece)
 
 torch.set_num_threads(2)
@@ -563,8 +563,9 @@ def test_chain_scores_kernel_matches_plain(cuda_device, B, N, kind, hand):
     """K8 against its twin: invalid rows (bp and lane emitted), unsorted
     fragments, tie-dense problems, one lane and both, a zero-slope piece
     (K8 must follow pwl_jnp's formula there, not K2's effective pieces),
-    and N = 9472, past the shared memory of the staged columns (the
-    kernel reads them from global memory)."""
+    and N = 9472, past K2's largest bucket (8192 rows): the CTA tier with
+    its lists in shared memory, which holds them up to N = 9536 (tier 2,
+    the lists in device scratch, beyond)."""
     gp = from_options(preset("ccs"))
     pwl = ((*zero_slope_piece(gp.slope, gp.inter), gp.ceiling1, gp.ceiling2)
            if hand else (gp.slope, gp.inter, gp.ceiling1, gp.ceiling2))
@@ -578,7 +579,43 @@ def test_chain_scores_kernel_matches_plain(cuda_device, B, N, kind, hand):
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
     assert bool((ref[1] >= 0).any())
     if N == 9472:
-        assert sdp.scan_smem(N) < 25 * N
+        assert sdp.scan_plan(N)["tier"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,kind,pwl", [
+    (5, 1, "unsorted", "preset"), (7, 63, "unsorted", "preset"),
+    (4, 100, "unsorted", "zero_slope"), (3, 512, "big_scores", "preset"),
+    (3, 512, "both_lanes", "negative"), (2, 8192, "unsorted", "negative"),
+    (1, 9472, "big_scores", "preset"), (1, 9600, "invalid", "preset"),
+    (3, 64, "big_scores", "negative")])
+def test_chain_scores_kernel_every_tier(cuda_device, B, N, kind, pwl):
+    """K8 against its twin with every plan of sdp.scan_plan_variants (the
+    warp tier, the CTA tier, tier 2 with the lists in device scratch):
+    N off the blocks of 64 (1, 63, 100, 9472; 9600 past tier 1's shared
+    memory), unsorted fragments, a
+    zero-slope piece, a piece of negative penalty (no pruning), and
+    scores near 2^25 on fragments that are predecessors on both lanes at
+    once (the lane from the sums)."""
+    gp = from_options(preset("ccs"))
+    make = {"preset": lambda s, i: (s, i), "zero_slope": zero_slope_piece,
+            "negative": negative_piece}[pwl]
+    slope, inter = (torch.from_numpy(np.asarray(a)).to(cuda_device)
+                    for a in make(gp.slope, gp.inter))
+    args = [torch.from_numpy(a).to(cuda_device) for a in
+            scan_bucket(np.random.default_rng(N + B), B, N, kind)]
+    ref = sdp.chain_scores_plain(*args, slope, inter, gp.ceiling1,
+                                 gp.ceiling2)
+    for name, plan in sdp.scan_plan_variants(N):
+        got = sdp._chain_scores_cuda(*args, slope, inter, gp.ceiling1,
+                                     gp.ceiling2, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].view(torch.int32),
+                           ref[0].view(torch.int32)), name
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]), \
+            name
+    if N > 1:
+        assert bool((ref[1] >= 0).any())
 
 
 def arrows_batch(rng, B, S, K, dev):
@@ -611,6 +648,40 @@ def test_banded_global_kernel_matches_plain(cuda_device, B, S, K,
     torch.cuda.synchronize()
     assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
     assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K", [
+    (300, 16, 4), (2000, 16, 30), (64, 512, 30), (200, 40, 100),
+    (6, 24, 600), (5, 12, 1100)])
+@pytest.mark.parametrize("per_problem", [False, True])
+def test_banded_global_kernel_every_tier(cuda_device, B, S, K,
+                                         per_problem):
+    """K9 against its twin with every plan of ak.arrows_plan_variants:
+    K4's warp rows at CPT 2 (K = 4, 30), CPT 9 (K = 100) and WP = 5 (K =
+    600), one problem a block and a full bucket's, the CTA tier (K =
+    1100); planes staged in shared memory, and at S = 512 with 8 problems
+    a block written row by row; kband None and per problem, edge rows,
+    and per problem also kband past K, a negative kband and qlen far
+    past the band (the kernel clamps both)."""
+    q, t, qlen, tlen, kb = arrows_batch(np.random.default_rng(S + K), B, S,
+                                        K, cuda_device)
+    kbf = kb if per_problem else torch.full_like(qlen, K)
+    if per_problem:
+        kbf[-1], kbf[-2] = K + 7, -3
+        qlen[-3] = S + 3 * K + 5
+    ref = ak.banded_global_kernel_plain(q, t, qlen, tlen, K, M, MM, IND,
+                                        kbf)
+    for name, plan in ak.arrows_plan_variants(K):
+        got = ak._arrows_cuda(q, t, qlen, tlen, kbf, K, M, MM, IND,
+                              plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].view(torch.int32),
+                           ref[0].view(torch.int32)), name
+        assert torch.equal(got[1], ref[1]), name
+    if K == 30 and S == 512:
+        full = ak.arrows_plan(K, 1 << 20)
+        assert ak.arrows_launch(full, K, S)[0] == 0
 
 
 @pytest.mark.cuda

@@ -16,9 +16,10 @@ KERNEL is k2 (chain_scores_blocked, csrc/sdp_blocked.cu), k4
 (one_gap_traced, csrc/one_gap.cu), p1 (banded_pallas_rowsync, the
 rowsync_kernel of csrc/banded_global.cu, or an earlier tree's
 csrc/rowsync.cu), k3 (chain_mask_from_scores, csrc/chain_mask.cu), k8
-(chain_scores, csrc/sdp_scan.cu) or k9 (banded_global_kernel,
-csrc/banded_arrows.cu; a source whose entry point takes a grid argument
-runs its CTAs over the problems, the grid from grid() below);
+(chain_scores: the scan instance of csrc/sdp_blocked.cu, or an earlier
+tree's csrc/sdp_scan.cu) or k9 (banded_global_kernel: the arrows
+instance of csrc/banded_global.cu, or an earlier tree's
+csrc/banded_arrows.cu);
 k6, p1 and k3 take every recorded launch of each path, with the device
 time of a path's launches summed at the end.  Each OTHER_TREE
 is an unpacked `git archive` of a commit (or a copy of this tree with
@@ -492,26 +493,41 @@ class K3:
 class K8:
     """chain_scores (the unblocked scan); inputs (qS, qE, tS, tE, score,
     lane1, lane2, valid, slope, inter, ceiling1, ceiling2).
-    chip_smoke.py --save-k8 saves the mesh phase's input."""
+    chip_smoke.py --save-k8 saves the mesh phase's input.  An earlier
+    tree's csrc/sdp_scan.cu (one CTA a problem, before the redesign) or
+    the scan instance of a tree's csrc/sdp_blocked.cu (scan_plan's
+    plan)."""
 
-    lib, src = "sdp_scan", "sdp_scan.cu"
-    planned_mark = "lra_chain_scores_scan"      # one entry point always
+    planned_mark = "scan_cta_kernel"
     patches: dict = {}
 
     def __init__(self, args, kw):
         self.args = [a.cuda() for a in args[:10]]
         self.c1, self.c2 = args[10:12]
 
+    @staticmethod
+    def source(tree: str) -> tuple:
+        old = os.path.join(tree, "lra_tpu_torch", "csrc", "sdp_scan.cu")
+        if os.path.exists(old):
+            return old, "sdp_scan"
+        return os.path.join(tree, "lra_tpu_torch", "csrc",
+                            "sdp_blocked.cu"), "sdp_blocked"
+
     def shape(self) -> str:
+        from lra_tpu_torch.ops import sdp
+
         B, N = self.args[0].shape
-        return f"B={B} N={N}"
+        return ("B={} N={}; tier {tier} threads {threads} smem {smem} "
+                "scratch {scratch}".format(B, N, **sdp.scan_plan(N)))
 
     @staticmethod
     def entry(so: str, planned: bool):
         fn = ctypes.CDLL(so).lra_chain_scores_scan
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_float] * 2 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_float] * 2 +
+                       [ctypes.c_int] * 5 if planned else
+                       [ctypes.c_void_p] * 13 + [ctypes.c_float] * 2 +
+                       [ctypes.c_int] * 3) + [ctypes.c_void_p]
         return fn
 
     def runner(self, fn, planned):
@@ -521,13 +537,24 @@ class K8:
 
         B, N = self.args[0].shape
         head = [x.data_ptr() for x in self.args]
+        plan = sdp.scan_plan(N)
+        scratch = torch.empty(max(1, B * plan["scratch"]), dtype=torch.uint8,
+                              device="cuda")
+        # the earlier kernel's shared memory: slopes, intercepts and
+        # reduction slots, and the columns (25 bytes a row) while they fit
+        fixed = 2 * 24 * 4 + 2 * 32 * 8
+        old_smem = fixed + 25 * N if fixed + 25 * N <= 232448 else fixed
 
         def run():
             out = [torch.empty((B, N), dtype=dt, device="cuda")
                    for dt in (torch.float32, torch.int32, torch.int32)]
-            rc = fn(*head, *[x.data_ptr() for x in out], self.c1, self.c2,
-                    B, N, sdp.scan_smem(N),
-                    torch.cuda.current_stream().cuda_stream)
+            ptrs = head + [x.data_ptr() for x in out]
+            if planned:
+                args = ptrs + [scratch.data_ptr(), self.c1, self.c2, B, N,
+                               plan["tier"], plan["threads"], plan["smem"]]
+            else:
+                args = ptrs + [self.c1, self.c2, B, N, old_smem]
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"K8: CUDA launch failed ({rc})")
             return out
@@ -544,21 +571,15 @@ class K8:
         return sdp.chain_scores_plain(*self.args, self.c1, self.c2)
 
 
-def grid(K: int, B: int, sms: int) -> int:
-    """The CTAs of a grid-stride K9 variant: B, or as many as are
-    resident at once (32 a SM at most, 2048 threads a SM)."""
-    from lra_tpu_torch.ops import affine_kernel as ak
-
-    return max(1, min(B, sms * min(32, 2048 // ak.arrows_threads(K))))
-
-
 class K9:
     """banded_global_kernel (score and the full arrow plane); inputs (q,
     t, qlen, tlen, K, m, mm, indel) and kband.  chip_smoke.py --save-k9
-    saves the mesh phase's input."""
+    saves the mesh phase's input.  An earlier tree's
+    csrc/banded_arrows.cu (one CTA a problem, before the redesign) or the
+    arrows instance of a tree's csrc/banded_global.cu (arrows_plan's
+    plan)."""
 
-    lib, src = "banded_arrows", "banded_arrows.cu"
-    planned_mark = "int grid"       # a grid-stride variant's entry point
+    planned_mark = "arrows_cta_kernel"     # not in banded_arrows.cu
     outs = ("score", "arrows")
     patches: dict = {}
 
@@ -567,44 +588,63 @@ class K9:
         self.K, self.m, self.mm, self.indel = args[4:8]
         self.kband = kw["kband"].cuda()
 
-    def shape(self) -> str:
+    @staticmethod
+    def source(tree: str) -> tuple:
+        old = os.path.join(tree, "lra_tpu_torch", "csrc", "banded_arrows.cu")
+        if os.path.exists(old):
+            return old, "banded_arrows"
+        return os.path.join(tree, "lra_tpu_torch", "csrc",
+                            "banded_global.cu"), "banded_global"
+
+    def plan(self) -> dict:
         from lra_tpu_torch.ops import _ext
         from lra_tpu_torch.ops import affine_kernel as ak
 
+        return ak.arrows_plan(self.K, self.q.shape[0], _ext.sm_count(0))
+
+    def shape(self) -> str:
+        import chip_smoke as cs
+
         B, Q = self.q.shape
-        return (f"B={B} S={Q} K={self.K}; {ak.arrows_threads(self.K)} "
-                f"threads; grid {grid(self.K, B, _ext.sm_count(0))} where "
-                "the source takes one")
+        return (f"B={B} S={Q} K={self.K}; "
+                f"{cs.arrows_plan_str(self.plan(), self.K, self.t.shape[1])}")
 
     @staticmethod
     def entry(so: str, planned: bool):
         fn = ctypes.CDLL(so).lra_banded_arrows
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + \
-            [ctypes.c_int] * (9 if planned else 8) + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+                       if planned else
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8) + \
+            [ctypes.c_void_p]
         return fn
 
     def runner(self, fn, planned):
         import torch
 
-        from lra_tpu_torch.ops import _ext
         from lra_tpu_torch.ops import affine_kernel as ak
 
         B, Q = self.q.shape
         T, K = self.t.shape[1], self.K
         head = [x.data_ptr() for x in (self.q, self.t, self.qlen, self.tlen,
                                        self.kband)]
-        tail = [B, Q, T, K, self.m, self.mm, self.indel,
-                ak.arrows_threads(K)]
+        plan = self.plan()
+        sp, smem = ak.arrows_launch(plan, K, T)
+        counter = torch.empty(4, dtype=torch.int32, device="cuda")
+        tail = [B, Q, T, K, self.m, self.mm, self.indel]
         if planned:
-            tail.append(grid(K, B, _ext.sm_count(0)))
+            tail += [plan["CPT"], plan["WP"], plan["PPC"], sp,
+                     plan["threads"], smem]
+        else:   # the earlier kernel: one thread a cell, at most 1024
+            tail += [min(1024, 32 * -(-(2 * K + 1) // 32))]
 
         def run():
             out = [torch.empty(B, dtype=torch.float32, device="cuda"),
                    torch.empty((B, T + 1, 2 * K + 1), dtype=torch.int8,
                                device="cuda")]
-            rc = fn(*head, *[x.data_ptr() for x in out], *tail,
-                    torch.cuda.current_stream().cuda_stream)
+            ptrs = head + [x.data_ptr() for x in out] + \
+                ([counter.data_ptr()] if planned else [])
+            rc = fn(*ptrs, *tail, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"K9: CUDA launch failed ({rc})")
             return out
