@@ -12,21 +12,25 @@ from ..io.sam import (bed_record, paf_record, pairwise_record, sam_header,
                       sam_record, unmapped_record)
 from ..device import resolve_device
 from ..options import Options
+from ..utils.timing import RECORDER
 from .highacc import map_batch
 
 
 def align_reads(reads, genome: Genome, index: GlobalIndex, opts: Options,
                 use_device: bool = True, genome_li=None, timing=None,
-                dots=None, device="cuda"):
+                dots=None, device="cuda", batch_id=None):
     """Align a batch of reads; returns (states, sam_lines).
 
     reads: iterable of (name, seq) where seq is str/bytes/uint8-codes.
     device: where the device rounds run (use_device=True): "cuda" (the
     default; raises when no CUDA device is present) or "cpu", the
     explicit opt-in that runs every kernel's plain torch twin.
+    batch_id: the batch's id in the span recorder (utils/timing.py)
+    while it records; None takes the next free id.
     """
     import time as _time
 
+    span = RECORDER.open_batch(batch_id) if RECORDER.on else None
     if use_device:
         device = resolve_device(device)
 
@@ -86,4 +90,7 @@ def align_reads(reads, genome: Genome, index: GlobalIndex, opts: Options,
                     if opts.passthrough_tag and st.name in passthrough:
                         line += "\t" + passthrough[st.name]
                     lines.append(line)
+    if span is not None:
+        RECORDER.close_batch(span, reads=len(states),
+                             bases=sum(len(st.codes) for st in states))
     return states, lines

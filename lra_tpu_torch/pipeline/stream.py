@@ -18,7 +18,9 @@ stream alone.  Host stages hold the GIL; the native host library and the
 kernel launches (ctypes calls) release it.
 
 Output order is preserved: results are yielded strictly in submission
-order regardless of completion order.
+order regardless of completion order.  While the span recorder
+(utils/timing.py) is on, each batch takes its id as it is submitted
+(run in turn, align_reads takes the next free id itself).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ def align_stream(batches, genome, index, opts, use_device=True,
     rides the pipelined path).
     """
     from ..device import resolve_device
+    from ..utils.timing import RECORDER
     from . import align_reads
 
     if workers > 1 and dots is not None:
@@ -64,17 +67,17 @@ def align_stream(batches, genome, index, opts, use_device=True,
 
             local.stream = torch.cuda.Stream(device=torch.device(device))
 
-    def run(batch):
+    def run(batch, bid):
         if not on_cuda:
             return align_reads(batch, genome, index, opts,
                                use_device=use_device, genome_li=genome_li,
-                               timing=timing, device=device)
+                               timing=timing, device=device, batch_id=bid)
         import torch
 
         with torch.cuda.stream(local.stream):
             return align_reads(batch, genome, index, opts,
                                use_device=use_device, genome_li=genome_li,
-                               timing=timing, device=device)
+                               timing=timing, device=device, batch_id=bid)
 
     with ThreadPoolExecutor(max_workers=workers,
                             initializer=start_worker) as pool:
@@ -88,7 +91,8 @@ def align_stream(batches, genome, index, opts, use_device=True,
                 except StopIteration:
                     exhausted = True
                     break
-                pending.append(pool.submit(run, batch))
+                bid = RECORDER.batch_id() if RECORDER.on else None
+                pending.append(pool.submit(run, batch, bid))
             if not pending:
                 break
             yield pending.popleft().result()

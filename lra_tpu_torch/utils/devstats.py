@@ -28,6 +28,17 @@ jobs, which run after the launches while the device works; and
 branch each: no event, no synchronisation.  Rounds of several threads
 (the ``-t N`` pool) record at once: each thread keeps its own round open
 and appends under a lock.
+
+``LRA_TPU_DEVSTATS`` gives ``ENABLED`` its value at import; every hook
+reads ``ENABLED`` when it is called, so code may switch it at run time.
+While the span recorder (``utils/timing.RECORDER``) is on, it keeps
+devstats on, and each round is a span named by its tag with four
+phases, ``<tag>.pack`` (entry to ``launched``; counts ``launch_s``,
+``host_s``), ``<tag>.wait`` (``launched``'s wait for the device),
+``<tag>.copy`` (to ``copied``; empty when nothing was copied) and
+``<tag>.post`` (to ``record``); the round counts its ``buckets``,
+``jobs`` and ``launches``.  ``reset()`` also drops the spans kept so
+far.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from __future__ import annotations
 import os
 import threading
 import time
+
+from .timing import RECORDER
 
 ENABLED = bool(os.environ.get("LRA_TPU_DEVSTATS"))
 EVENTS: list = []
@@ -56,6 +69,7 @@ def record(tag: str, **kw) -> None:
 def reset() -> None:
     with _lock:
         EVENTS.clear()
+    RECORDER.clear()
 
 
 def report(out=None) -> dict:
@@ -87,40 +101,75 @@ class Round:
     in between (``timed_launch``) are bracketed by CUDA events."""
 
     def __init__(self):
-        self.t_enter = self.t_post0 = now()
+        t = time.perf_counter_ns()
+        self.t_enter = self.t_post0 = t / 1e9
         self.pack_s = self.compute_s = self.copy_s = 0.0
         self.launch_s = self.host_s = 0.0
         self.nbytes = 0
         self.events: list = []          # (before, after) per launch
         self.outer = getattr(_tls, "round", None)
         _tls.round = self
+        self.span = None
+        if RECORDER.on:
+            # (perf_counter ns, thread CPU ns) at each phase's start
+            self.marks = {"pack": (t, time.thread_time_ns())}
+            self.span = RECORDER.open("round", "round", t)
+
+    def _mark(self, phase: str, t_ns: int) -> None:
+        if self.span is not None:
+            self.marks[phase] = (t_ns, time.thread_time_ns())
 
     def launched(self) -> None:
         """Every bucket is launched and the host jobs are done: wait for
         the last launch (its stream only) and read the launches' device
         time."""
-        t0 = now()
-        self.pack_s = t0 - self.t_enter
+        t0 = time.perf_counter_ns()
+        self._mark("wait", t0)
+        self.pack_s = t0 / 1e9 - self.t_enter
         if self.events:
             self.events[-1][1].synchronize()
             self.compute_s = sum(a.elapsed_time(b)
                                  for a, b in self.events) / 1e3
-        else:
-            self.compute_s = now() - t0
-        self.t_post0 = now()
+        t1 = time.perf_counter_ns()
+        if not self.events:
+            self.compute_s = (t1 - t0) / 1e9
+        self.t_post0 = t1 / 1e9
+        self._mark("copy", t1)
 
     def copied(self, nbytes: int) -> None:
         """The results' one device-to-host copy is done."""
-        t = now()
+        t_ns = time.perf_counter_ns()
+        t = t_ns / 1e9
         self.copy_s, self.t_post0, self.nbytes = t - self.t_post0, t, nbytes
+        self._mark("post", t_ns)
 
     def record(self, tag: str, **kw) -> None:
         """Close the round: its host decoding ends now."""
+        t_ns = time.perf_counter_ns()
+        self._mark("end", t_ns)
         _tls.round = self.outer
         record(tag, **kw, pack_s=self.pack_s, compute_s=self.compute_s,
-               copy_s=self.copy_s, post_s=now() - self.t_post0,
+               copy_s=self.copy_s, post_s=t_ns / 1e9 - self.t_post0,
                bytes=self.nbytes, launch_s=self.launch_s,
                host_s=self.host_s, launches=len(self.events))
+        if self.span is not None:
+            self._spans(tag, t_ns, kw)
+
+    def _spans(self, tag: str, t_ns: int, kw: dict) -> None:
+        """The round's span and its four phases.  A round that never
+        copied has an empty copy phase, and one that never launched empty
+        pack, wait and copy phases, as their seconds are 0 in its event."""
+        bounds = [self.marks["pack"]]
+        for phase in ("wait", "copy", "post", "end"):
+            bounds.append(self.marks.get(phase, bounds[-1]))
+        for k, phase in enumerate(("pack", "wait", "copy", "post")):
+            (a, ca), (b, cb) = bounds[k], bounds[k + 1]
+            counts = ({"launch_s": self.launch_s, "host_s": self.host_s}
+                      if phase == "pack" else None)
+            RECORDER.child(self.span, f"{tag}.{phase}", a, b, cb - ca,
+                           counts)
+        self.span.name = tag
+        RECORDER.close(self.span, t_ns, {**kw, "launches": len(self.events)})
 
 
 def timed_launch(f, args, stream) -> int:

@@ -114,6 +114,13 @@ def test_timing_report(refdir):
     report = (d / "t.tsv").read_text()
     assert "TOTAL" in report
     assert "SDP-1 (device)" in report
+    rows = [ln.split("\t") for ln in report.splitlines()]
+    assert rows[0] == ["stage", "seconds", "calls", "fraction",
+                       "cpu_seconds"]
+    for row in rows[1:]:
+        assert len(row) == 5
+        # a stage's thread CPU seconds are at most its wall seconds
+        assert 0.0 <= float(row[4]) <= float(row[1]) + 1e-3, row
 
 
 def test_dotplot_dump(refdir):
