@@ -1147,6 +1147,11 @@ class JobMix:
                 name = "SDP-3"
                 sizes = [len(t.problem.qS) for t in items]
                 what = "problems, max fragments"
+            elif hasattr(items, "close"):       # the batch's GapTable
+                name = "gap-align"
+                items.close()
+                sizes = np.maximum(items.ql, items.tl).tolist()
+                what = "jobs, longest side (bp)"
             else:
                 name = ("refine boxes" if mod_name.endswith("gap_align")
                         else "indel-refine" if any(j.refine for j in items)

@@ -22,7 +22,9 @@ FLAG_SUPPLEMENTARY = 0x800
 @dataclass
 class Segment:
     """One SAM record's alignment: blocks in strand frame, t chrom-local."""
-    blocks: list                      # [(q, t, len)] ascending
+    # [(q, t, len)] ascending; an int64 [n, 3] array from the gap splice
+    # until the indel-refine splice (pipeline/highacc.finalize_batch)
+    blocks: list
     strand: int
     chrom: int
     read_len: int
@@ -45,22 +47,22 @@ class Segment:
 
     @property
     def qStart(self):
-        return self.blocks[0][0] if self.blocks else 0
+        return self.blocks[0][0] if len(self.blocks) else 0
 
     @property
     def qEnd(self):
-        if not self.blocks:
+        if len(self.blocks) == 0:
             return 0
         q, t, ln = self.blocks[-1]
         return q + ln
 
     @property
     def tStart(self):
-        return self.blocks[0][1] if self.blocks else 0
+        return self.blocks[0][1] if len(self.blocks) else 0
 
     @property
     def tEnd(self):
-        if not self.blocks:
+        if len(self.blocks) == 0:
             return 0
         q, t, ln = self.blocks[-1]
         return t + ln

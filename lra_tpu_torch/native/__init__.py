@@ -212,9 +212,9 @@ def blocks_from_packed_arrays(packed: np.ndarray):
     """blocks_from_packed without the python-list materialization:
     returns (flat int32[total, 3] COPY, counts int32[B]) — job b's
     blocks are flat[offs[b]:offs[b]+counts[b]] with offs = cumsum
-    exclusive — or None if the native library is unavailable.  The hot
-    consumers (_insert_gap_blocks) take the rows as arrays; cold ones
-    call .tolist() per job, same cost as before."""
+    exclusive — or None if the native library is unavailable.  The
+    gap-align round lays them into its table's CSR of solved blocks
+    (pipeline/gap_align.solve_gap_jobs) as they come."""
     lib = _load()
     if not lib:
         return None
@@ -650,7 +650,8 @@ def refine_dp(q: np.ndarray, t: np.ndarray, K: int, kband: int,
     """Refine-lane banded DP + traceback for one long indel-refine
     region (C mirror of ops/affine_kernel.banded_refine_np +
     traceback_refine, identical recurrence/tie order).  Returns blocks
-    [(q_off, t_off, len)] or None if the native lib is unavailable."""
+    as an int64 [n, 3] array of (q_off, t_off, len), or None if the
+    native lib is unavailable."""
     lib = _load()
     if not lib:
         return None
@@ -665,7 +666,7 @@ def refine_dp(q: np.ndarray, t: np.ndarray, K: int, kband: int,
         out.ctypes.data_as(ctypes.c_void_p), cap)
     if nb < 0:
         return None
-    return [tuple(r) for r in out[:nb].tolist()]
+    return out[:nb].copy()
 
 
 def refine_dp_shaped(q: np.ndarray, t: np.ndarray, path: np.ndarray,
@@ -674,7 +675,8 @@ def refine_dp_shaped(q: np.ndarray, t: np.ndarray, path: np.ndarray,
     region's existing block path (the reference's qS/qE geometry,
     IndelRefine.h:219-330, as a slightly wider superset).  path:
     [n,3] int64 job-local (q,t,len) triples spanning (0,0)..(qlen,tlen).
-    Returns blocks [(q_off, t_off, len)] or None if unavailable."""
+    Returns blocks as an int64 [n, 3] array of (q_off, t_off, len), or
+    None if unavailable."""
     lib = _load()
     if not lib:
         return None
@@ -691,4 +693,4 @@ def refine_dp_shaped(q: np.ndarray, t: np.ndarray, path: np.ndarray,
         out.ctypes.data_as(ctypes.c_void_p), cap)
     if nb < 0:
         return None
-    return [tuple(r) for r in out[:nb].tolist()]
+    return out[:nb].copy()

@@ -76,7 +76,7 @@ class BigGapTask:
     next_q: int = 0
     next_t: int = 0
     read: np.ndarray = None
-    chrom: np.ndarray = None
+    ref: tuple = None        # (genome codes, the chromosome's start)
 
 
 def prepare_big_gap(read_strand: np.ndarray, chrom: np.ndarray,
@@ -169,14 +169,13 @@ def finish_big_gap(task: BigGapTask) -> list:
     return out
 
 
-def resolve_big_gaps(tasks: list, gap_jobs: list, gp: GapParams,
+def resolve_big_gaps(tasks: list, gaps, gp: GapParams,
                      use_device: bool = True, device="cuda") -> None:
     """One batched device round for every big gap of the batch (the 3rd
     SDP, reference: SparseDP_Forward.h:312), then splice the chained
-    mid-anchors into the owning segments and queue the residual sub-gaps
-    for the banded aligner."""
-    from .gap_align import GapJob
-
+    mid-anchors into the owning segments and add the residual sub-gaps
+    to the batch's gap table (pipeline/gap_align.GapTable) for the
+    banded aligner."""
     if not tasks:
         return
     solve_problems([t.problem for t in tasks], gp, use_device, device)
@@ -188,12 +187,10 @@ def resolve_big_gaps(tasks: list, gap_jobs: list, gp: GapParams,
             if mq < pq or mt < pt:
                 continue
             if pq < mq and pt < mt:
-                gap_jobs.append(GapJob(task.read[pq:mq],
-                                       task.chrom[pt:mt],
-                                       (si, gi, zi, pq, pt)))
+                gaps.add_one((si, gi, zi), pq, mq, pt, mt, task.read,
+                             task.ref)
             task.seg.blocks.append((mq, mt, ml))
             pq, pt = mq + ml, mt + ml
         if task.next_q > pq and task.next_t > pt:
-            gap_jobs.append(GapJob(task.read[pq:task.next_q],
-                                   task.chrom[pt:task.next_t],
-                                   (si, gi, zi, pq, pt)))
+            gaps.add_one((si, gi, zi), pq, task.next_q, pt, task.next_t,
+                         task.read, task.ref)

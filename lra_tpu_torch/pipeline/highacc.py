@@ -52,7 +52,7 @@ from ..index.global_index import GlobalIndex
 from ..io.genome import Genome
 from ..ops.gapcost import from_options
 from ..options import Options
-from .gap_align import (GapJob, diag_gap_guard, solve_gap_jobs,
+from .gap_align import (GapTable, diag_gap_guard, solve_gap_jobs,
                         trivial_diag_gap)
 from .refine import refine_btwn_clusters_chain, refine_clusters
 
@@ -256,10 +256,15 @@ def _expand_chain(chain_frag_ids, backref, ext_clusters):
     counts = np.fromiter((len(ec.qpos) for ec in ext_clusters),
                          np.int64, len(ext_clusters))
     offs = np.concatenate([[0], np.cumsum(counts)])
-    s = np.fromiter((ext_clusters[c].g_start[g]
-                     for c, g in zip(ci, gi)), np.int64, len(f))
-    e = np.fromiter((ext_clusters[c].g_end[g]
-                     for c, g in zip(ci, gi)), np.int64, len(f))
+    # each (cluster, group)'s anchor slice [s, e), gathered from the
+    # clusters' group bounds laid end to end
+    none = np.zeros(0, np.int64)
+    gs = [none if ec.g_start is None else ec.g_start for ec in ext_clusters]
+    ge = [none if ec.g_end is None else ec.g_end for ec in ext_clusters]
+    gsz = np.fromiter(map(len, gs), np.int64, len(gs))
+    at = (np.cumsum(gsz) - gsz)[ci] + gi
+    s = np.concatenate(gs).astype(np.int64)[at]
+    e = np.concatenate(ge).astype(np.int64)[at]
     lens = e - s
     total = int(lens.sum())
     grp_off = np.repeat(np.cumsum(lens) - lens, lens)
@@ -493,8 +498,8 @@ def map_batch(reads, genome: Genome, index: GlobalIndex, opts: Options,
     if timing:
         timing.tick("SDP-2 (device)")
 
-    # ---- host: final chains -> segments + gap jobs ----
-    gap_jobs = []
+    # ---- host: final chains -> segments + gap rows ----
+    gaps = GapTable()
     big_gap_tasks = []
     for si, st in enumerate(states):
         if st.unaligned:
@@ -518,7 +523,7 @@ def map_batch(reads, genome: Genome, index: GlobalIndex, opts: Options,
                     continue
                 ac.second_sdp_value = chain_vmax(p)
                 _assemble_segments(st, ch, ac, exts, genome, opts, group,
-                                   gap_jobs, si, len(st.groups), gp,
+                                   gaps, si, len(st.groups), gp,
                                    big_gap_tasks)
             if group.segments:
                 st.groups.append(group)
@@ -527,11 +532,11 @@ def map_batch(reads, genome: Genome, index: GlobalIndex, opts: Options,
         timing.tick("chain+assemble")
     # ---- device: 3rd SDP over all big gaps of the batch ----
     from .big_gap import resolve_big_gaps
-    resolve_big_gaps(big_gap_tasks, gap_jobs, gp, use_device, device)
+    resolve_big_gaps(big_gap_tasks, gaps, gp, use_device, device)
     if timing:
         timing.tick("SDP-3 (device)")
     # ---- device: gap alignment + host finalize ----
-    finalize_batch(states, gap_jobs, genome, opts, use_device, timing,
+    finalize_batch(states, gaps, genome, opts, use_device, timing,
                    device)
     if dots:
         for st in states:
@@ -542,25 +547,23 @@ def map_batch(reads, genome: Genome, index: GlobalIndex, opts: Options,
     return states
 
 
-def finalize_batch(states, gap_jobs, genome, opts, use_device=True,
+def finalize_batch(states, gaps: GapTable, genome, opts, use_device=True,
                    timing=None, device="cuda") -> None:
-    """Shared final phase: solve gap jobs on device, splice blocks, run
-    the indel-refine pass (second batched device round), compute
-    CIGAR/stats, rank groups, assign MAPQ."""
+    """Shared final phase: solve the batch's gap table on device, splice
+    its blocks, run the indel-refine pass (second batched device round),
+    compute CIGAR/stats, rank groups, assign MAPQ."""
     from ..align.indel_refine import (plan_end_extension,
                                       queue_indel_refine_jobs,
                                       splice_refined_blocks)
 
-    solve_gap_jobs(gap_jobs, opts, use_device, device)
+    solve_gap_jobs(gaps, opts, use_device, device)
     if timing:
         timing.tick("gap-align (device)")
-    by_key: dict = {}
-    for job in gap_jobs:
-        by_key.setdefault(job.key[:3], []).append(job)
     starts_g = genome.starts()
 
-    # first pass: splice gap blocks, queue indel-refine regions
-    ir_jobs = []
+    # first pass: splice gap blocks (the whole batch at once), queue
+    # indel-refine regions
+    entries = []
     for si, st in enumerate(states):
         if st.unaligned or not st.groups:
             st.unaligned = True
@@ -568,17 +571,20 @@ def finalize_batch(states, gap_jobs, genome, opts, use_device=True,
             continue
         for gi, group in enumerate(st.groups):
             for zi, seg in enumerate(group.segments):
-                jobs = by_key.get((si, gi, zi), [])
-                _insert_gap_blocks(seg, jobs)
-                if opts.skip_banded_refine or not seg.blocks:
-                    continue
-                chrom_codes = genome.codes[
-                    starts_g[seg.chrom]:genome.ends[seg.chrom]]
-                read = st.rc if seg.strand == 1 else st.codes
-                if opts.highly_accurate:
-                    plan_end_extension(seg, len(read), len(chrom_codes))
-                ir_jobs.extend(queue_indel_refine_jobs(
-                    seg, read, chrom_codes, opts, (si, gi, zi)))
+                entries.append(((si, gi, zi), seg))
+    splice_gap_blocks(entries, gaps)
+    ir_jobs = []
+    for key3, seg in entries:
+        if opts.skip_banded_refine or len(seg.blocks) == 0:
+            continue
+        st = states[key3[0]]
+        chrom_codes = genome.codes[
+            starts_g[seg.chrom]:genome.ends[seg.chrom]]
+        read = st.rc if seg.strand == 1 else st.codes
+        if opts.highly_accurate:
+            plan_end_extension(seg, len(read), len(chrom_codes))
+        ir_jobs.extend(queue_indel_refine_jobs(
+            seg, read, chrom_codes, opts, key3))
 
     # second device round: banded re-alignment of fragmented regions
     if timing:
@@ -669,10 +675,11 @@ def type_inversions(segs: list) -> None:
 
 
 def _assemble_segments(st, ch, ac: AnchorChain, exts, genome, opts,
-                       group: SegGroup, gap_jobs: list, si: int, gi: int,
+                       group: SegGroup, gaps: GapTable, si: int, gi: int,
                        gp=None, big_gap_tasks: list | None = None):
     """Walk the cleaned anchor chain, split by strand, emit anchor blocks,
-    and queue gap jobs.  Anchors arrive end-first (descending q)."""
+    and add the gaps between them to the batch's gap table.  Anchors
+    arrive end-first (descending q)."""
     n = len(ac)
     read_len = len(st.codes)
     # segment boundaries at strand flips (reference: SeparateChainByStrand)
@@ -688,6 +695,7 @@ def _assemble_segments(st, ch, ac: AnchorChain, exts, genome, opts,
         strand = int(ac.strand[lo])
         chrom = exts[ac.cluster[lo]].chrom
         chrom_codes = genome.codes[genome.starts()[chrom]:genome.ends[chrom]]
+        ref = (genome.codes, int(genome.starts()[chrom]))
         q = ac.qpos[lo:hi_]
         t = ac.tpos[lo:hi_]
         ln = ac.length[lo:hi_]
@@ -770,13 +778,12 @@ def _assemble_segments(st, ch, ac: AnchorChain, exts, genome, opts,
                 arr[apos[tj] + 1, 0] = pe_q[tj]
                 arr[apos[tj] + 1, 1] = pe_t[tj]
                 arr[apos[tj] + 1, 2] = r_all[tj]
-            seg.blocks = list(map(tuple, arr.tolist()))
-            for j in np.flatnonzero(jobs_needed):
-                gap_jobs.append(GapJob(
-                    read[pe_q[j]:vq[j + 1]],
-                    chrom_codes[pe_t[j]:vt[j + 1]],
-                    (si, gi, zi, int(pe_q[j]), int(pe_t[j])),
-                    checked=True))
+            # the blocks stay an array until the indel-refine splice
+            seg.blocks = arr
+            jn = np.flatnonzero(jobs_needed)
+            if len(jn):
+                gaps.add((si, gi, zi), pe_q[jn], vq[jn + 1], pe_t[jn],
+                         vt[jn + 1], read, ref)
             group.segments.append(seg)
             zi += 1
             continue
@@ -836,7 +843,7 @@ def _assemble_segments(st, ch, ac: AnchorChain, exts, genome, opts,
                         task.prev_q_end = prev_q_end
                         task.prev_t_end = prev_t_end
                         task.next_q, task.next_t = bq, bt
-                        task.read, task.chrom = read, chrom_codes
+                        task.read, task.ref = read, ref
                         big_gap_tasks.append(task)
                         deferred = True
                 if not deferred and rgap > 0 and tgap > 0:
@@ -852,11 +859,9 @@ def _assemble_segments(st, ch, ac: AnchorChain, exts, genome, opts,
                             chrom_codes[prev_t_end:bt]):
                         seg.blocks.append((prev_q_end, prev_t_end, rgap))
                     else:
-                        gap_jobs.append(GapJob(
-                            read[prev_q_end:bq],
-                            chrom_codes[prev_t_end:bt],
-                            (si, gi, zi, prev_q_end, prev_t_end),
-                            checked=True))
+                        gaps.add_one((si, gi, zi), prev_q_end, bq,
+                                     prev_t_end, bt, read, ref,
+                                     checked=True)
             seg.blocks.append((bq, bt, bl))
             prev_q_end = bq + bl
             prev_t_end = bt + bl
@@ -865,54 +870,67 @@ def _assemble_segments(st, ch, ac: AnchorChain, exts, genome, opts,
             zi += 1
 
 
-def _insert_gap_blocks(seg: Segment, jobs: list) -> None:
-    """Splice solved gap blocks (relative coords) into the segment's block
-    list and restore (q, t) order."""
-    arr_parts = []
-    for job in jobs:
-        q_off, t_off = job.key[3], job.key[4]
-        bl = job.blocks
-        if bl is None or len(bl) == 0:
-            continue
-        if isinstance(bl, np.ndarray):
-            # device-decode path: offset the int32[n,3] rows vectorized
-            a = bl.astype(np.int64)
-            a[:, 0] += q_off
-            a[:, 1] += t_off
-            arr_parts.append(a)
-            continue
-        for (bq, bt, ln) in bl:
-            seg.blocks.append((q_off + bq, t_off + bt, ln))
-    if arr_parts:
-        own = np.asarray(seg.blocks, np.int64).reshape(-1, 3) \
-            if seg.blocks else np.zeros((0, 3), np.int64)
-        a = np.concatenate([own] + arr_parts)
-    elif len(seg.blocks) > 1:
-        a = np.asarray(seg.blocks, np.int64)
-    else:
+def _monotone(a: np.ndarray) -> np.ndarray:
+    """Per adjacent pair of (q, t, len) rows: the second starts at or
+    after the first's end on both axes."""
+    return ((a[1:, 0] >= a[:-1, 0] + a[:-1, 2])
+            & (a[1:, 1] >= a[:-1, 1] + a[:-1, 2]))
+
+
+def splice_gap_blocks(entries: list, gaps: GapTable) -> None:
+    """Splice the solved gap blocks of the whole batch into its segments'
+    own blocks, in one pass: entries are ((si, gi, zi), segment) pairs.
+
+    Each segment's blocks become an int64 [n, 3] array: its own blocks
+    (anchors and trivial diagonals, an array or a tuple list), then its
+    gap rows' blocks offset to the gap's start, in row order; a segment
+    that is not q- and t-monotone so is sorted by (q, t), stably, and
+    the rows still out of order after the sort are dropped."""
+    if not entries:
         return
-    if len(a) <= 1:
-        seg.blocks = list(map(tuple, a.tolist()))
-        return
-    # vectorized fast path: already sorted + q/t-monotone (the common
-    # case) needs no work; one lexsort otherwise, and the defensive
-    # drop-out-of-order scan only runs when a violation survives the sort
-    q, t, ln = a[:, 0], a[:, 1], a[:, 2]
-    if bool(np.all((q[1:] >= q[:-1] + ln[:-1])
-                   & (t[1:] >= t[:-1] + ln[:-1]))):
-        if arr_parts:
-            seg.blocks = list(map(tuple, a.tolist()))
-        return
-    a = a[np.lexsort((t, q))]
-    q, t, ln = a[:, 0], a[:, 1], a[:, 2]
-    if bool(np.all((q[1:] >= q[:-1] + ln[:-1])
-                   & (t[1:] >= t[:-1] + ln[:-1]))):
-        seg.blocks = list(map(tuple, a.tolist()))
-        return
-    out = []
-    pq = pt = -1
-    for (bq, bt, bl) in a.tolist():
-        if bq >= pq and bt >= pt:
-            out.append((bq, bt, bl))
-            pq, pt = bq + bl, bt + bl
-    seg.blocks = out
+    own = [seg.blocks if isinstance(seg.blocks, np.ndarray)
+           else np.asarray(seg.blocks, np.int64).reshape(-1, 3)
+           for _, seg in entries]
+    n_own = np.fromiter(map(len, own), np.int64, len(own))
+    parts = own
+    pos = [np.repeat(np.arange(len(own), dtype=np.int64), n_own)]
+    if gaps.blocks is not None and len(gaps.blocks):
+        # each gap row's segment as its entry's position (-1: none)
+        at = np.full(len(gaps.keys), -1, np.int64)
+        for p, (key3, _) in enumerate(entries):
+            sid = gaps.segment_id(key3)
+            if sid is not None:
+                at[sid] = p
+        counts = np.diff(gaps.boff)
+        row = np.repeat(np.arange(gaps.n, dtype=np.int64), counts)
+        gp = at[gaps.seg[row]]
+        keep = gp >= 0
+        gb = gaps.blocks[keep]
+        gb[:, 0] += gaps.q0[row[keep]]
+        gb[:, 1] += gaps.t0[row[keep]]
+        parts = own + [gb]
+        pos.append(gp[keep])
+    a = np.concatenate(parts) if len(parts) > 1 else parts[0]
+    p_all = np.concatenate(pos) if len(pos) > 1 else pos[0]
+    if len(pos) > 1:
+        order = np.argsort(p_all, kind="stable")
+        a, p_all = a[order], p_all[order]
+    cut = np.zeros(len(entries) + 1, np.int64)
+    np.cumsum(np.bincount(p_all, minlength=len(entries)), out=cut[1:])
+    # segments out of (q, t) order: lexsort, then the defensive drop
+    bad = np.unique(p_all[1:][~_monotone(a) & (p_all[1:] == p_all[:-1])])
+    fixed = {}
+    for p in bad.tolist():
+        b = a[cut[p]:cut[p + 1]]
+        b = b[np.lexsort((b[:, 1], b[:, 0]))]
+        if not bool(np.all(_monotone(b))):
+            out = []
+            pq = pt = -1
+            for (bq, bt, bl) in b.tolist():
+                if bq >= pq and bt >= pt:
+                    out.append((bq, bt, bl))
+                    pq, pt = bq + bl, bt + bl
+            b = np.asarray(out, np.int64).reshape(-1, 3)
+        fixed[p] = b
+    for p, (_, seg) in enumerate(entries):
+        seg.blocks = fixed[p] if p in fixed else a[cut[p]:cut[p + 1]]

@@ -38,6 +38,7 @@ from ..ops.gapcost import from_options
 from ..options import Options
 from .highacc import (ReadState, _assemble_segments, _expand_chain,
                       finalize_batch)
+from .gap_align import GapTable
 from .refine import refine_btwn_clusters_chain, refine_clusters
 
 
@@ -474,7 +475,7 @@ def map_batch_lowacc(reads, genome: Genome, index: GlobalIndex,
         timing.tick("SDP-2' (device)")
 
     # ---- host: assemble ----
-    gap_jobs = []
+    gaps = GapTable()
     big_gap_tasks = []
     for (si, uc, probs) in jobs2:
         st = states[si]
@@ -497,7 +498,7 @@ def map_batch_lowacc(reads, genome: Genome, index: GlobalIndex,
                 value = uc.value
             n_before = len(group.segments)
             _assemble_segments(st, _Ch, ac, [ec], genome, opts, group,
-                               gap_jobs, si, len(st.groups), gp,
+                               gaps, si, len(st.groups), gp,
                                big_gap_tasks)
             if ty == "I":
                 for seg in group.segments[n_before:]:
@@ -512,9 +513,9 @@ def map_batch_lowacc(reads, genome: Genome, index: GlobalIndex,
         timing.tick("chain+assemble")
     # ---- device: 3rd SDP over all big gaps of the batch ----
     from .big_gap import resolve_big_gaps
-    resolve_big_gaps(big_gap_tasks, gap_jobs, gp, use_device, device)
+    resolve_big_gaps(big_gap_tasks, gaps, gp, use_device, device)
     if timing:
         timing.tick("SDP-3 (device)")
-    finalize_batch(states, gap_jobs, genome, opts, use_device, timing,
+    finalize_batch(states, gaps, genome, opts, use_device, timing,
                    device)
     return states

@@ -151,3 +151,59 @@ def test_devstats_report_table(monkeypatch):
                        "pack_s", "compute_s", "copy_s", "post_s", "bytes"]
     assert rows[1] == ["gap_align", "2", "3", "8", "1", "1.0000", "0.5000",
                        "0.0000", "0.2500", "96"]
+
+
+def test_devstats_gap_table_rows(monkeypatch):
+    """On a small ONT batch: the gap-align round's rows taken from the
+    batch's gap table and decoded as arrays (``table_rows``) and the
+    others (``object_rows``) add up to its ``jobs``; ``object_rows``
+    holds every row decoded one at a time (K6's) and ``host_rows``
+    counts the host fallbacks, which are in no bucket."""
+    from lra_tpu_torch.index.local_index import build_genome_local_index
+    from lra_tpu_torch.pipeline import gap_align, highacc
+
+    rng = np.random.default_rng(9)
+    genome = TGenome.from_seqs([("chr1", random_genome(rng, 150000))])
+    opts = t_preset("ont")
+    idx = t_build_global_index(genome, opts)
+    gli = build_genome_local_index(genome, max_freq=opts.local_max_freq)
+    reads = [(f"ont{i}", sample_read(rng, genome.codes, 6000, snp=0.03,
+                                     ins=0.01, dele=0.01,
+                                     rev_prob=0.5).codes)
+             for i in range(2)]
+    seen = {"one_gap": 0, "host": 0}
+    table_round = []
+
+    def solve(jobs, *a, **k):
+        table_round.append(isinstance(jobs, gap_align.GapTable))
+        try:
+            return solve_orig(jobs, *a, **k)
+        finally:
+            table_round.pop()
+
+    def counting(name, f):
+        def g(*a, **k):
+            if table_round and table_round[-1]:
+                seen[name] += 1
+            return f(*a, **k)
+        return g
+
+    solve_orig = highacc.solve_gap_jobs
+    monkeypatch.setattr(highacc, "solve_gap_jobs", solve)
+    monkeypatch.setattr(gap_align, "blocks_from_one_gap_ops", counting(
+        "one_gap", gap_align.blocks_from_one_gap_ops))
+    monkeypatch.setattr(gap_align, "affine_one_gap_align", counting(
+        "host", gap_align.affine_one_gap_align))
+    monkeypatch.setattr(devstats, "ENABLED", True)
+    devstats.reset()
+    _, lines = t_align_reads(reads, genome, idx, opts, genome_li=gli,
+                             device="cpu")
+    rounds = [kw for tag, kw in devstats.EVENTS if tag == "gap_align"]
+    devstats.reset()
+    assert len(lines) >= len(reads)
+    assert len(rounds) == 1
+    kw = rounds[0]
+    assert kw["table_rows"] + kw["object_rows"] == kw["jobs"] > 0
+    assert kw["object_rows"] >= seen["one_gap"]
+    assert kw["host_rows"] == seen["host"]
+    assert kw["table_rows"] > kw["object_rows"]

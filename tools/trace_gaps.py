@@ -9,7 +9,8 @@ as it is) and then prints to standard error the ten longest gaps between
 device activities inside the window.  For each, every thread with a span
 across the gap's middle gives its deepest such span (a round's phase,
 say ``gap_align.pack``, before its round, its stage and its batch) and
-that span's CPU share (its thread's CPU time over its wall).  The spans
+that span's CPU share (its thread's CPU time over its wall), and then
+each device round tag's counts, summed over the window.  The spans
 are ``lra_tpu_torch/utils/timing.RECORDER``'s, which the traced run keeps
 on (it sets ``LRA_TPU_DEVSTATS``).
 """
@@ -109,7 +110,25 @@ def main(argv=None, **run_kw) -> int:
     for line in name_gaps(idle_gaps(seen["ops"], seen["window"]), spans,
                           seen["window"][0]):
         harness.log("  " + line)
+    harness.log("the window's device rounds, by tag (their spans' counts):")
+    for line in round_counts(spans):
+        harness.log("  " + line)
     return rc
+
+
+def round_counts(spans: list) -> list:
+    """One line per round tag: its rounds and each count its round spans
+    carry (buckets, jobs, launches; the alignment rounds' table_rows,
+    object_rows and host_rows), summed over the window."""
+    agg: dict = {}
+    for s in spans:
+        if s.kind == "round":
+            a = agg.setdefault(s.name, {"rounds": 0})
+            a["rounds"] += 1
+            for k, v in (s.counts or {}).items():
+                a[k] = a.get(k, 0) + v
+    return [f"{tag}: " + ", ".join(f"{k} {v}" for k, v in a.items())
+            for tag, a in agg.items()]
 
 
 if __name__ == "__main__":
