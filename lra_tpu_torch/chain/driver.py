@@ -247,7 +247,7 @@ def solve_problems(problems: list, gp: GapParams, use_device: bool = True,
                     child.qS[:nh] = -1
                 batch.append(child)
                 stitches.append((p, childs[r]))
-        _solve_batch(batch, gp, use_device, device)
+        _solve_batch(batch, gp, use_device, device, len(stitches))
         for p, (c, lo, hi, off) in stitches:
             local = slice(lo - off, hi - off)
             p.V[lo:hi] = c.V[local]
@@ -257,11 +257,19 @@ def solve_problems(problems: list, gp: GapParams, use_device: bool = True,
 
 
 def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
-                 device="cuda"):
-    """One bucketed+batched device round over ready problems.
+                 device="cuda", shards: int = 0):
+    """One bucketed+batched device round over ready problems, ``shards``
+    of them q-range shard children.
 
     Both N (fragments) and B (problems per bucket) are padded to fixed
-    sizes; every bucket is launched before the one merged download."""
+    sizes; every bucket is launched before the one merged download.  The
+    round's device-round statistics count, besides its buckets and jobs,
+    the windowed kernel's problems (``win_jobs``), their fragments
+    (``win_rows``) and their buckets' padded rows (``win_pad_rows``),
+    the FAR sentinels resolved on the host (``far_sentinels``) and
+    ``shards``; the host work the windowed kernel adds (its far
+    schedules, then the sentinels) is the round's ``chain_sdp.far``
+    spans while the span recorder is on."""
     rnd = devstats.Round() if devstats.ENABLED else None
     # N == 1 is trivial: the only chain is the fragment itself
     for p in problems:
@@ -293,6 +301,7 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
             windowed.setdefault((N, _windowed_W(p.qS)), []).append(p)
     key = gp.static_key()
     pending = []
+    win_jobs = win_rows = win_pad_rows = n_far = 0
     for bkey, plist in list(by_bucket.items()) + list(windowed.items()):
         N = bkey[0]
         is_win = N > _BUCKETS[-1]
@@ -302,7 +311,13 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
         arrays = pad_problems(plist, B, N)
         if is_win:
             # host precompute of the far-term schedules, padded
+            start = devstats.clock() if rnd else None
             arrays += pad_far_schedules(plist, B, N)
+            if rnd:
+                rnd.part("chain_sdp.far", start)
+            win_jobs += len(plist)
+            win_rows += sum(len(p.qS) for p in plist)
+            win_pad_rows += B * N
             for p in plist:
                 p.win_W = win_W
             packed = run_sharded(_chain_packed_windowed, arrays,
@@ -326,6 +341,7 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
         if rnd:
             rnd.copied(merged.nbytes)
     off = 0
+    wins = []
     for plist, full, pk in pending:
         size = pk.numel()
         packed = merged[off:off + size].reshape(tuple(pk.shape))
@@ -349,19 +365,31 @@ def _solve_batch(problems: list, gp: GapParams, use_device: bool = True,
             n = len(p.qS)
             p.V, p.bp, p.lane = V[b, :n].copy(), bp[b, :n].copy(), \
                 lane[b, :n].copy()
-            # windowed kernel: resolve FAR1/FAR2 backpointer sentinels on
-            # the host (rare; the device only records that the saturated
-            # far term won, not which fragment achieved it)
+        if packed.shape[-1] > _BUCKETS[-1]:
+            wins += [(p, packed.shape[-1]) for p in plist]
+    if wins:
+        # windowed kernel: resolve FAR1/FAR2 backpointer sentinels on the
+        # host (rare; the device only records that the saturated far term
+        # won, not which fragment achieved it)
+        start = devstats.clock() if rnd else None
+        for p, N in wins:
             far = np.nonzero(p.bp < -1)[0]
+            n_far += len(far)
+            n = len(p.qS)
             for i in far:
                 p.bp[i] = resolve_far_np(
                     int(i), p.qS, p.qE, p.tS, p.tE, p.V,
                     np.asarray(p.lane1, bool), np.asarray(p.lane2, bool),
                     np.ones(n, bool), 1 if p.bp[i] == -2 else 2, WIN_L,
-                    p.win_W, N=packed.shape[-1])
+                    p.win_W, N=N)
+        if rnd:
+            rnd.part("chain_sdp.far", start)
     if rnd:
         rnd.record("chain_sdp", buckets=len(pending),
-                   jobs=sum(len(pl) for pl, _, _ in pending))
+                   jobs=sum(len(pl) for pl, _, _ in pending),
+                   win_jobs=win_jobs, win_rows=win_rows,
+                   win_pad_rows=win_pad_rows, far_sentinels=n_far,
+                   shards=shards)
 
 
 @dataclass

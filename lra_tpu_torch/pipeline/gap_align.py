@@ -334,7 +334,8 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
     buckets' rows taken from a table and decoded as arrays
     (``table_rows``), the others (``object_rows``: rows of ``add_one``
     or ``from_jobs``, and rows decoded one at a time, as K6's), and the
-    host fallbacks' rows (``host_rows``, in no bucket).
+    host fallbacks' rows (``host_rows``, in no bucket), whose work is
+    the round's child span ``<tag>.host`` while the span recorder is on.
     """
     rnd = devstats.Round() if devstats.ENABLED else None
     tb = (jobs.close() if isinstance(jobs, GapTable)
@@ -615,10 +616,10 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
     # every device bucket is now in flight; do the host-side jobs while
     # the chip works
     if rnd:
-        t0 = devstats.now()
+        start = devstats.clock()
     run_host_jobs()
     if rnd:
-        rnd.host_s = devstats.now() - t0
+        rnd.host_s = rnd.part(f"{tag}.host", start, host_rows=len(host_idx))
 
     flat_parts = [buf.reshape(-1) for K, _, _, _, buf in pending
                   if K is None]

@@ -37,7 +37,11 @@ phases, ``<tag>.pack`` (entry to ``launched``; counts ``launch_s``,
 ``host_s``), ``<tag>.wait`` (``launched``'s wait for the device),
 ``<tag>.copy`` (to ``copied``; empty when nothing was copied) and
 ``<tag>.post`` (to ``record``); the round counts its ``buckets``,
-``jobs`` and ``launches``.  ``reset()`` also drops the spans kept so
+``jobs`` and ``launches``.  A round may also name a part of its host
+work (``Round.part``), a further child span of the round, inside one of
+its phases: the alignment rounds' ``<tag>.host`` (their host fallback
+rows) and the chaining round's ``chain_sdp.far`` (the windowed kernel's
+far schedules and sentinels).  ``reset()`` also drops the spans kept so
 far.
 """
 
@@ -58,6 +62,12 @@ _tls = threading.local()
 
 def now() -> float:
     return time.perf_counter()
+
+
+def clock() -> tuple:
+    """(perf_counter ns, thread CPU ns) now: where a ``Round.part``
+    starts."""
+    return time.perf_counter_ns(), time.thread_time_ns()
 
 
 def record(tag: str, **kw) -> None:
@@ -142,6 +152,16 @@ class Round:
         t = t_ns / 1e9
         self.copy_s, self.t_post0, self.nbytes = t - self.t_post0, t, nbytes
         self._mark("post", t_ns)
+
+    def part(self, name: str, start: tuple, **counts) -> float:
+        """Host work of the round from ``start`` (``clock()``) to now: a
+        child span ``name`` of the round while the recorder is on, with
+        ``counts``.  Returns its wall seconds."""
+        t_ns = time.perf_counter_ns()
+        if self.span is not None:
+            RECORDER.child(self.span, name, start[0], t_ns,
+                           time.thread_time_ns() - start[1], counts or None)
+        return (t_ns - start[0]) / 1e9
 
     def record(self, tag: str, **kw) -> None:
         """Close the round: its host decoding ends now."""
