@@ -259,12 +259,18 @@ def exact(name, a, b) -> float:
         else 0.0
 
 
+# one launch a round on the round's device, mesh or not: its regions are
+# no [B, ...] bucket for the mesh to shard
+UNSHARDED = ("refine_shaped",)
+
+
 def expect_launches(tag, counts, base, factor) -> None:
     """Raise unless every kernel's launches are factor x base's: 1 for a
     run on one device (no mesh active: the stream phase's workers share
     the card), n for a mesh of n entries (each bucket's kernel runs once
-    a shard)."""
-    want = {k: factor * v for k, v in base.items()}
+    a shard); the UNSHARDED kernels' as base's either way."""
+    want = {k: (1 if k in UNSHARDED else factor) * v
+            for k, v in base.items()}
     if counts != want:
         raise AssertionError(f"{tag}: launches {counts} != {factor} x the "
                              f"unsharded run's {base}")
@@ -1067,6 +1073,34 @@ class Recorder:
         return rec
 
 
+class ShapedCapture:
+    """Keeps the long shaped-band refine regions (q, t, qlo, qhi) each
+    path sends refine_shaped_kernel (warm-up runs only), by path label."""
+
+    def __init__(self):
+        self.regions: dict = {}
+        self.path = None
+        self.orig = None
+
+    def __enter__(self):
+        from lra_tpu_torch.ops import refine_shaped
+
+        self.orig = refine_shaped.pack
+
+        def keep(regions, **kw):
+            self.regions.setdefault(self.path, []).extend(regions)
+            return self.orig(regions, **kw)
+
+        refine_shaped.pack = keep
+        return self
+
+    def __exit__(self, *exc):
+        from lra_tpu_torch.ops import refine_shaped
+
+        refine_shaped.pack = self.orig
+        return False
+
+
 class JobMix:
     """Tallies the work each device round is given (warm-up runs only):
     chaining problems and their largest fragment count per SDP round,
@@ -1324,10 +1358,10 @@ def check_contig(label, kind, mix, counts) -> None:
                                  "all reach K7")
 
 
-def e2e_phase(work, rec, mixes) -> tuple:
-    """Drive each path on one device (no mesh): a recorded warm-up, then a
-    timed run with the launch counts reset just before and read just
-    after.  Returns ({path: SAM lines}, {kernel: launches on the first
+def e2e_phase(work, rec, mixes, shaped) -> tuple:
+    """Drive each path on one device (no mesh): a recorded warm-up (the
+    shaped-band refine regions kept by ``shaped``), then a timed run with
+    the launch counts reset just before and read just after.  Returns ({path: SAM lines}, {kernel: launches on the first
     path that launched it}, {path: launches}, {path: wall s})."""
     import torch
 
@@ -1344,9 +1378,9 @@ def e2e_phase(work, rec, mixes) -> tuple:
         n = sum(len(b) for b in batches)
         bases = sum(len(c) for b in batches for _, c in b)
         mix = JobMix()
-        rec.path = label
+        rec.path = shaped.path = label
         t0 = time.perf_counter()
-        with rec, mix:
+        with rec, mix, shaped:
             align_all(batches, genome, idx, opts, gli, DEV)
         torch.cuda.synchronize()
         log(f"e2e [{label}] warm-up: {time.perf_counter() - t0:.2f} s")
@@ -1393,6 +1427,82 @@ def e2e_phase(work, rec, mixes) -> tuple:
                 raise AssertionError(f"malformed SAM line: {ln[:120]}")
         all_lines[label] = lines
     return all_lines, launches, path_counts, walls
+
+
+def shaped_check(tag, regions, opts) -> None:
+    """refine_shaped_kernel against its twin (the host C DP over the same
+    windows) on `regions`, all in one launch, exact; then the longest
+    alone, timed (CUDA events, 3 runs, the fastest): us a row."""
+    import torch
+
+    from lra_tpu_torch.ops import refine_shaped as rs
+
+    sc = (opts.local_match, opts.local_mismatch, opts.local_indel)
+    p = rs.pack(regions)
+    counts, out = rs.solve(p, *sc, DEV)
+    got = rs.fetch_blocks(p, counts.cpu().numpy(), out)
+    tc, tw = rs.solve(p, *sc, "cpu")
+    want = rs.fetch_blocks(p, tc.numpy(), tw)
+    bad = sum(not np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"  shaped {tag}: {p.R} regions, {p.rows} rows, {p.cells} cells, "
+        f"widest rows {int(p.view('maxw').min())}-"
+        f"{int(p.view('maxw').max())}, blocks "
+        f"{int(counts.sum())}, {bad} not equal to the twin")
+    if bad:
+        raise AssertionError(f"shaped {tag}: {bad} regions differ from the "
+                             "twin")
+    one = rs.pack([max(regions, key=lambda r: len(r[1]))])
+    best = 1e30
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        rs.solve(one, *sc, DEV)
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b))
+    rows = one.rows - 1
+    log(f"  shaped {tag}: longest region {rows} rows, {one.cells} cells, "
+        f"widest row {int(one.view('maxw')[0])}: {best:.3f} ms, "
+        f"{1e3 * best / rows:.4f} us a row")
+
+
+def shaped_paths_phase(work, shaped) -> None:
+    """The shaped-band refine kernel on each path's regions (forward
+    draft contigs send none: their path stays on the diagonal band of the
+    device tiers), then on a reverse-strand contig: CONTIG (b)'s draft
+    contig reverse-complemented, aligned on the card with its regions
+    kept, each exact against the twin, its SAM lines equal to a run on
+    the CPU."""
+    import hashlib
+
+    from lra_tpu_torch import seq as sequtils
+
+    kinds = {label: kind for label, kind, _, _ in PATHS}
+    for label, regions in shaped.regions.items():
+        if regions:
+            shaped_check(f"[{label}]", regions, work[kinds[label]][3])
+    genome, batches, idx, opts, gli = work["contig_draft"]
+    name, ctg = batches[0][0]
+    rev = [[(name + "_rev", sequtils.revcomp(ctg))]]
+    cap = ShapedCapture()
+    cap.path = "rev"
+    t0 = time.perf_counter()
+    with cap:
+        _, lines = align_all(rev, genome, idx, opts, gli, DEV)
+    dt = time.perf_counter() - t0
+    regions = cap.regions.get("rev", [])
+    if not regions:
+        raise AssertionError("reverse-strand contig: no shaped region")
+    log(f"  shaped [contig 2.5 Mb reverse]: aligned on the card in "
+        f"{dt:.2f} s (warm)")
+    shaped_check("[contig 2.5 Mb reverse]", regions, opts)
+    _, cpu_lines = align_all(rev, genome, idx, opts, gli, "cpu")
+    if cpu_lines != lines:
+        raise AssertionError("reverse-strand contig: SAM lines on the card "
+                             "!= on the CPU")
+    log(f"  shaped [contig 2.5 Mb reverse]: SAM lines = the CPU run's "
+        f"(sha256 {hashlib.sha256(chr(10).join(lines).encode()).hexdigest()})")
 
 
 def chain_mask_phase(problems, opts, rec, launches) -> None:
@@ -2405,7 +2515,7 @@ HAND = ("sdp_blocked_warp_kernel", "sdp_blocked_cta_kernel",
         "banded_refine_kernel", "rowsync_kernel", "one_gap_warp_kernel",
         "one_gap_kernel",
         "sdp_windowed_kernel", "scan_warp_kernel", "scan_cta_kernel",
-        "arrows_kernel", "arrows_cta_kernel")
+        "arrows_kernel", "arrows_cta_kernel", "refine_shaped_kernel")
 
 
 def profile_phase(work, label, workers=0) -> None:
@@ -2527,7 +2637,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     rec = Recorder()
     mixes: dict = {}
-    all_lines, launches, path_counts, walls = e2e_phase(work, rec, mixes)
+    shaped = ShapedCapture()
+    all_lines, launches, path_counts, walls = e2e_phase(work, rec, mixes,
+                                                        shaped)
     log(f"[{time.perf_counter() - T0:.0f} s] e2e paths done")
     for label, lines in all_lines.items():
         check_sha(label, lines)
@@ -2575,6 +2687,7 @@ def main() -> int:
         if flag in sys.argv:
             save_inputs(tag, store, sys.argv[sys.argv.index(flag) + 1])
     windowed_paths_phase(rec)
+    shaped_paths_phase(work, shaped)
     log(f"[{time.perf_counter() - T0:.0f} s] main-path kernels done")
     mesh_rows, mesh_inputs = mesh_phase(work, rec, all_lines, path_counts,
                                         walls)

@@ -91,6 +91,7 @@
 // memory only, PPC * (2 * R * P + 16) bytes, plus 64 * WP per problem at
 // WP > 1 (at most 74,256 B).
 
+#include <climits>
 #include <mutex>
 
 #include "banded_common.cuh"
@@ -519,6 +520,477 @@ int launch(const void* q, const void* t, const void* qlen, const void* tlen,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The shaped-band refine DP of the long indel-refine regions:
+// refine_shaped_kernel, the device solver of native lra_native.cpp's
+// lrn_refine_dp_windowed, over the row windows of lrn_refine_windows.
+//
+// A region of qlen x tlen is solved over per-row windows: row j covers
+// q in [qlo[j], qlo[j] + wid[j] - 1], both bounds non-decreasing in j,
+// row 0 starting at q = 0.  Each cell takes K5's recurrence, operands and
+// tie order (above), at column i of row j:
+//   D    = max(S[j-1][i] + open, D[j-1][i])
+//   base = max(max(S[j-1][i-1] + sub, S[j-1][i] + indel), D)
+//   S    = max(leftclosure(base)[i], prefixmax(base)[i-1] + open)
+// over the row's window, with S and D of a cell outside row j-1's window
+// NEGF, and the i = 0 column a rail for j >= 1; row 0 is S = indel * i,
+// D = NEGF.
+//
+// Design:
+// - One block a region, of WP warps, one per 32 cells of its widest row
+//   (rounded up to 1-6, 8 or 16, the instantiated counts); lane l of warp
+//   w owns cell x = 32w + l of every row (column qlo[j] + x).  A round
+//   holds few long regions, each of up to millions of rows, so the row's
+//   latency is the critical path, and the warps issue a row's work side
+//   by side.  A warp's row is about 200 instructions, issued at about 5
+//   cycles each (one warp to a scheduler): 0.45-0.52 us a row at 2-5
+//   warps on an H100.  (A row on one warp, 2-8 cells a lane, ran
+//   0.62-1.53 us a row; the rows down the lanes as a wavefront,
+//   0.68-1.06.)
+// - Row j-1's S and D stay in registers, the cell's own.  At a shift
+//   s = qlo[j] - qlo[j-1] of 0 or 1 (a path along the diagonal, or an
+//   insertion's rows) the cell reads them by one shuffle, and a warp's
+//   edge lanes take its neighbours' edge cells from the exchange (K5's
+//   Xch, published each row; the row's one barrier).  At any other shift
+//   the row reads row j-1 from shared memory, where every row leaves it,
+//   after a second barrier.
+// - The linear closure and the prefix max are K5's: a 5-step warp scan
+//   of both, then the warps' aggregates from the exchange; a warp
+//   rebuilds its neighbours' edge cells from the same values by the same
+//   operations.  The plane byte is K5's plane_flags byte, one byte a
+//   window cell, rows back to back at the running sum of the widths (no
+//   padding, no score plane), 32 consecutive bytes a warp store.
+// - Exactness: as K5's, every finite value is an integer, exact in f32
+//   while it stays under 2^24 in magnitude (the max over a row's cells
+//   in any order, the closure as max(base - indel * x) + indel * x).
+//   The caller routes a region only where no score can pass that on the
+//   match side (ops/refine_shaped.py, route) and passes `lim`, a bound
+//   under which every sum a row forms is exact; a region in which a
+//   finite S passes it gets count -2 (the caller raises on it).
+// - The traceback (shaped_walk, warp 0) is K5's state machine over
+//   chunks of rows staged into shared memory with cp.async while the
+//   next chunk is in flight, the whole warp in step: in the main lane,
+//   lane k reads the cell k steps down the diagonal, and one ballot takes
+//   the run of matches at once.  It emits blocks (q, t, len) as native
+//   emit_refine_blocks cuts the op string, from the last block back; then
+//   the warp reverses them and makes them relative to the walk's end.
+//   A walk of qlen + tlen steps emits at most qlen + tlen + 2 blocks (the
+//   C DP's cap), which the caller sizes each region's output to.
+//
+// Memory: the plane (one byte a window cell), the inputs (q and t codes,
+// qlo int32 and wid int16 a row, 64 bytes a region) and the blocks
+// (int32 triples, qlen + tlen + 2 a region); nothing a cell besides the
+// plane byte.
+
+constexpr int SH_MAXW = 512;     // widest window row (ops/refine_shaped.py)
+constexpr int SH_MAXWP = SH_MAXW / 32;
+constexpr int SH_CHUNK = 16384;  // walk chunk bytes
+constexpr int SH_MAX_CR = 256;   // walk chunk rows
+
+struct ShapedRows {
+  float S[2][SH_MAXW];  // row j's S and D at row parity, for shifts >= 2
+  float D[2][SH_MAXW];
+  Xch x[2][SH_MAXWP];   // what each warp publishes, at row parity
+};
+
+struct ShapedWalk {
+  __align__(16) uint8_t buf[2][SH_CHUNK + 32];
+  int rlo[2][SH_MAX_CR];
+  int roff[2][SH_MAX_CR];
+  int rwid[2][SH_MAX_CR];
+};
+
+union ShapedSmem {
+  ShapedRows f;
+  ShapedWalk w;
+};
+
+// Region meta, int64 x 7: q offset, t offset, qlen, tlen, first row's
+// offset in qlo/wid, plane offset, blocks offset.
+struct Region {
+  long long qoff, toff, qlen, tlen, woff, poff, ooff;
+};
+
+// Warps a block for a region whose widest row has maxw cells: one per 32
+// cells, in the instantiated counts (ops/refine_shaped.py: warps).
+__host__ __device__ __forceinline__ int shaped_warps(int maxw) {
+  const int n = (maxw + 31) >> 5;
+  return n <= 6 ? n : (n <= 8 ? 8 : SH_MAXWP);
+}
+
+// The forward rows of a region, warp wp of WP; returns its cells (plane
+// bytes).
+template <int WP>
+__device__ __forceinline__ long long shaped_rows(
+    ShapedRows& sm, const int8_t* __restrict__ q, const int8_t* __restrict__ t,
+    const int* __restrict__ qlo, const short* __restrict__ wid,
+    uint8_t* plane, long long poff, int qlen, int tlen, float m, float mm,
+    float indel, float lim, int* bad_any, int wp, int lane) {
+  const float open = 2.f * indel + 1.f;
+  bool bad = false;
+  const int x0 = 32 * wp, x = x0 + lane, nthr = 32 * WP;
+  const float indx = indel * (float)x;  // exact
+  // row 0: S = indel * i, D = NEGF over [0, wid[0])
+  int pw = __ldg(wid), plo = 0;
+  float S = x < pw ? indx : NEGF, D = NEGF;  // the cell's row j-1
+  if (x < pw)
+    plane[poff + x] =
+        (uint8_t)(x > 0 ? VALID_BIT | INS_BIT : VALID_BIT | DONE_BIT);
+  sm.S[0][x] = S;
+  sm.D[0][x] = D;
+  // row j-1 at warp wp-1's last cell (lane 0 reads it) and at warp
+  // wp+1's first (lane 31 reads it)
+  float Sleft = x0 >= 1 && x0 - 1 < pw ? indel * (float)(x0 - 1) : NEGF;
+  float Sright = x0 + 32 < pw ? indel * (float)(x0 + 32) : NEGF;
+  float Dright = NEGF;
+  long long roff = poff + pw;  // row j's plane byte
+  // row 1's window, t code and q code; row 2's window
+  int lo_n = tlen >= 1 ? __ldg(qlo + 1) : 0;
+  int w_n = tlen >= 1 ? (int)__ldg(wid + 1) : 0;
+  int tc_n = tlen >= 1 ? (int)__ldg(t) : 0;
+  int qc_n = lo_n + x >= 1 && lo_n + x <= qlen ? (int)__ldg(q + lo_n + x - 1)
+                                               : QPAD;
+  int lo_nn = tlen >= 2 ? __ldg(qlo + 2) : 0;
+  int w_nn = tlen >= 2 ? (int)__ldg(wid + 2) : 0;
+  group_sync(1, nthr);
+  for (int j = 1; j <= tlen; ++j) {
+    const int lo = lo_n, w = w_n, tc = tc_n, qc = qc_n;
+    lo_n = lo_nn;
+    w_n = w_nn;
+    if (j < tlen) {
+      tc_n = __ldg(t + j);
+      const int in = lo_n + x;
+      qc_n = in >= 1 && in <= qlen ? (int)__ldg(q + in - 1) : QPAD;
+    }
+    if (j + 2 <= tlen) {
+      lo_nn = __ldg(qlo + j + 2);
+      w_nn = __ldg(wid + j + 2);
+    }
+    // row j-1 at columns lo + x (up, D) and lo + x - 1 (diagonal)
+    const int s = lo - plo;
+    float sUp, dUp, sDg;
+    if (s == 0) {
+      sUp = S;
+      dUp = D;
+      sDg = __shfl_up_sync(FULL, S, 1);
+      if (lane == 0) sDg = Sleft;
+    } else if (s == 1) {
+      sUp = __shfl_down_sync(FULL, S, 1);
+      dUp = __shfl_down_sync(FULL, D, 1);
+      if (lane == 31) {
+        sUp = Sright;
+        dUp = Dright;
+      }
+      sDg = S;
+    } else {
+      group_sync(1, nthr);  // every warp's row j-1 in shared memory
+      const float* Sp = sm.S[(j - 1) & 1];
+      const float* Dp = sm.D[(j - 1) & 1];
+      const int k = x + s;
+      sUp = k < pw ? Sp[k] : NEGF;
+      dUp = k < pw ? Dp[k] : NEGF;
+      sDg = k - 1 < pw ? Sp[k - 1] : NEGF;
+    }
+    const bool v = x < w && lo + x >= 1;  // the i = 0 column is a rail
+    const float sub = qc == tc ? m : mm;
+    const float sMat = sDg + sub;
+    const float so = sUp + open;
+    const float Dn = fmaxf(so, dUp);
+    const float delLin = sUp + indel;
+    float base = fmaxf(fmaxf(sMat, delLin), Dn);
+    if (!v) base = NEGF;
+    // warp-inclusive scans: the linear closure, the plain prefix max
+    float r0 = base - indx, r1 = base;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {  // below lane o, a lane's own value
+      r0 = fmaxf(r0, __shfl_up_sync(FULL, r0, o));
+      r1 = fmaxf(r1, __shfl_up_sync(FULL, r1, o));
+    }
+    float e1 = __shfl_up_sync(FULL, r1, 1);
+    if (lane == 0) e1 = NEGF;  // prefixmax(base)[-1]: the twin's NEGF
+    Xch* X = sm.x[j & 1];
+    if (lane == 31) {
+      X[wp].agg0 = r0;
+      X[wp].agg1 = r1;
+      X[wp].pmx = e1;
+      X[wp].vlast = v;
+    }
+    if (lane == 0) {
+      X[wp].x0f = base - indx;
+      X[wp].dnf = Dn;
+      X[wp].vf = v;
+    }
+    group_sync(1, nthr);
+    // the warps' aggregates before this one (pre), up to it (p), and
+    // before warp wp-1 (pre1m); then its neighbours' edge cells, each as
+    // the warp that owns it computes it
+    float pre0 = -INFINITY, pre1 = NEGF, pre1m = NEGF, p0 = -INFINITY,
+          p1 = NEGF;
+#pragma unroll
+    for (int k = 0; k < WP; ++k) {
+      const float2 a = *(const float2*)&X[k].agg0;
+      if (k + 1 < wp) pre1m = fmaxf(pre1m, a.y);
+      if (k < wp) {
+        pre0 = fmaxf(pre0, a.x);
+        pre1 = fmaxf(pre1, a.y);
+      }
+      if (k <= wp) {
+        p0 = fmaxf(p0, a.x);
+        p1 = fmaxf(p1, a.y);
+      }
+    }
+    const Xch& Y = X[wp > 0 ? wp - 1 : 0];
+    const Xch& Z = X[wp + 1 < WP ? wp + 1 : wp];
+    const float slf =
+        wp > 0 && Y.vlast
+            ? fmaxf(pre0 + indel * (float)(x0 - 1), fmaxf(pre1m, Y.pmx) + open)
+            : NEGF;
+    const bool zv = wp + 1 < WP && Z.vf;
+    Sright = zv ? fmaxf(fmaxf(Z.x0f, p0) + indel * (float)(x0 + 32), p1 + open)
+                : NEGF;
+    Dright = zv ? Z.dnf : NEGF;
+    Sleft = slf;
+    const float I = fmaxf(e1, pre1) + open;
+    const float Sn = v ? fmaxf(fmaxf(r0, pre0) + indx, I) : NEGF;
+    bad |= Sn > -1e29f && fabsf(Sn) > lim;
+    // row j's S one cell left: warp wp-1's last cell, as that warp has it
+    float sl = __shfl_up_sync(FULL, Sn, 1);
+    if (lane == 0) sl = slf;
+    if (x < w)
+      plane[roff + x] = (uint8_t)plane_flags(
+          Sn, sl, I, sMat, delLin, Dn, (float)(Dn == so), v, indel, open);
+    S = Sn;
+    D = v ? Dn : NEGF;
+    sm.S[j & 1][x] = S;
+    sm.D[j & 1][x] = D;
+    roff += w;
+    plo = lo;
+    pw = w;
+  }
+  if (__any_sync(FULL, bad) && lane == 0) atomicOr(bad_any, 1);
+  return roff - poff;
+}
+
+// Stage the plane rows [jlo, jhi] of a region whose row jhi + 1 starts
+// at byte E (region-relative) into buffer b: the rows' windows and
+// offsets from the staged base, then their bytes with 16-byte cp.async
+// copies (one commit group).  Returns the offset of row jlo.
+__device__ __forceinline__ long long stage_chunk(
+    ShapedWalk& sm, int b, const int* __restrict__ qlo,
+    const short* __restrict__ wid, const uint8_t* plane, long long poff,
+    int jlo, int jhi, long long E, int lane) {
+  const int n = jhi - jlo + 1;
+  const int G = (n + 31) >> 5;  // rows a lane, contiguous (at most 8)
+  int sum = 0;
+  for (int g = 0; g < G; ++g) {
+    const int r = lane * G + g;
+    if (r < n) sum += __ldg(wid + jlo + r);
+  }
+  int inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += v;
+  }
+  const int total = __shfl_sync(FULL, inc, 31);
+  const long long start = E - total;  // row jlo's offset
+  const long long a16 = (poff + start) & ~15ll;
+  int off = (int)(poff + start - a16) + (inc - sum);
+  for (int g = 0; g < G; ++g) {
+    const int r = lane * G + g;
+    if (r < n) {
+      const int w = __ldg(wid + jlo + r);
+      sm.rlo[b][r] = __ldg(qlo + jlo + r);
+      sm.rwid[b][r] = w;
+      sm.roff[b][r] = off;
+      off += w;
+    }
+  }
+  const long long end16 = (poff + E + 15) & ~15ll;
+  const int nv = (int)((end16 - a16) >> 4);
+  for (int v = lane; v < nv; v += 32)
+    cp_async16(&sm.buf[b][16 * v], plane + a16 + 16 * v);
+  asm volatile("cp.async.commit_group;\n" ::);
+  return start;
+}
+
+// The lane-aware traceback of a region over its plane (K5's state
+// machine; the C DP's walk), the whole warp in step, with the blocks cut
+// as emit_refine_blocks cuts the op string; lane 0 writes them.  Returns
+// the block count.
+__device__ __forceinline__ int shaped_walk(
+    ShapedWalk& sm, const int* __restrict__ qlo,
+    const short* __restrict__ wid, const uint8_t* plane, long long poff,
+    long long cells, int qlen, int tlen, int maxw, int* o, int lane) {
+  constexpr int MAIN = 0, NONE = -1;
+  const int CR = min(SH_MAX_CR, SH_CHUNK / max(maxw, 1));
+  int i = qlen, j = tlen, ln = MAIN;
+  int nb = 0;
+  auto put = [&](int a, int b, int len) {
+    if (lane == 0) {
+      o[3 * nb] = a;
+      o[3 * nb + 1] = b;
+      o[3 * nb + 2] = len;
+    }
+    ++nb;
+  };
+  int tok = NONE, tokn = 0, ti = 0, tj = 0;  // the op run being read
+  bool pend = false;                         // a gap run with no DIAG yet
+  int pi = 0, pj = 0;
+  // a run ends: its block, as emit_refine_blocks
+  auto run_ends = [&]() {
+    if (tok == DIAG) {
+      put(ti, tj, tokn);
+      pend = false;
+    } else if (tok != NONE) {
+      if (pend) put(pi, pj, 0);
+      pend = true;
+      pi = ti;
+      pj = tj;
+    }
+  };
+  bool active = true;
+  int jlo = max(0, tlen - CR + 1), cur = 0;
+  long long E = stage_chunk(sm, 0, qlo, wid, plane, poff, jlo, tlen, cells,
+                            lane);
+  for (;;) {
+    const int nlo = max(0, jlo - CR);
+    long long En = E;
+    if (jlo > 0) {
+      En = stage_chunk(sm, cur ^ 1, qlo, wid, plane, poff, nlo, jlo - 1, E,
+                       lane);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();
+    const uint8_t* rows = sm.buf[cur];
+    while (active) {
+      if (i < 0 || j < 0) {
+        active = false;
+        break;
+      }
+      if (j < jlo) break;  // the walk enters the next chunk
+      // lane k reads the cell k steps down the diagonal, in this chunk
+      const int jk = j - lane, ik = i - lane;
+      int pk = 0;
+      if (jk >= jlo && ik >= 0) {
+        const int r = jk - jlo, lo = sm.rlo[cur][r];
+        if (ik >= lo && ik < lo + sm.rwid[cur][r])
+          pk = rows[sm.roff[cur][r] + ik - lo];
+      }
+      const int p = __shfl_sync(FULL, pk, 0);
+      if (!(p & VALID_BIT) || (ln == MAIN && (p & DONE_BIT))) {
+        active = false;
+        break;
+      }
+      if (ln == MAIN) {  // a run of matches: DIAG steps, all at once
+        const unsigned mk = __ballot_sync(FULL, is_match(pk));
+        const int n = ~mk ? __ffs(~mk) - 1 : 32;
+        if (n > 0) {
+          if (tok != DIAG) {
+            run_ends();
+            tok = DIAG;
+            tokn = 0;
+          }
+          tokn += n;
+          i -= n;
+          j -= n;
+          ti = i;
+          tj = j;
+          continue;
+        }
+      }
+      const int x = ln == MAIN ? arrow_of(p) : ln + 3;
+      const int a = x < REF_DELC ? x : 6 - x;  // delClose DOWN, insClose LEFT
+      const bool closes = p & (x == REF_DELC ? DEL_OPEN_BIT : INS_OPEN_BIT);
+      ln = x < REF_DELC || closes ? MAIN : x - 3;
+      i -= a != DOWN;
+      j -= a != LEFT;
+      if (a != tok) {
+        run_ends();
+        tok = a;
+        tokn = 0;
+      }
+      ++tokn;
+      ti = i;
+      tj = j;
+    }
+    if (!active || jlo == 0) break;
+    __syncwarp();  // the warp is done with buf[cur] before it is restaged
+    jlo = nlo;
+    E = En;
+    cur ^= 1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  run_ends();
+  if (pend) put(pi, pj, 0);
+  if (nb == 0) put(i, j, 0);
+  __syncwarp();  // lane 0's blocks before the warp reorders them
+  // last block first -> first block first, relative to the walk's end
+  for (int k = lane; k < (nb + 1) / 2; k += 32) {
+    const int k2 = nb - 1 - k;
+    const int a0 = o[3 * k] - i, a1 = o[3 * k + 1] - j, a2 = o[3 * k + 2];
+    const int b0 = o[3 * k2] - i, b1 = o[3 * k2 + 1] - j, b2 = o[3 * k2 + 2];
+    o[3 * k] = b0;
+    o[3 * k + 1] = b1;
+    o[3 * k + 2] = b2;
+    if (k2 != k) {
+      o[3 * k2] = a0;
+      o[3 * k2 + 1] = a1;
+      o[3 * k2 + 2] = a2;
+    }
+  }
+  return nb;
+}
+
+// One block a region: its forward rows on shaped_warps(widest row) warps,
+// then its walk on warp 0.
+__global__ void __launch_bounds__(SH_MAXW)
+refine_shaped_kernel(const int8_t* __restrict__ q,
+                     const int8_t* __restrict__ t,
+                     const int* __restrict__ qlo,
+                     const short* __restrict__ wid,
+                     const long long* __restrict__ meta,
+                     const int* __restrict__ maxw, uint8_t* plane, int* out,
+                     int* counts, float m, float mm, float indel,
+                     float lim) {
+  __shared__ ShapedSmem sm;
+  __shared__ int bad;
+  const int r = blockIdx.x, lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int WP = shaped_warps(maxw[r]);
+  if (wp >= WP) return;
+  if (threadIdx.x == 0) bad = 0;  // before shaped_rows' first barrier
+  const Region g = ((const Region*)meta)[r];
+  const int ql = (int)g.qlen, tl = (int)g.tlen;
+  long long cells;
+#define LRA_SHAPED_ROWS(N)                                                    \
+  cells = shaped_rows<N>(sm.f, q + g.qoff, t + g.toff, qlo + g.woff,        \
+                         wid + g.woff, plane, g.poff, ql, tl, m, mm, indel, \
+                         lim, &bad, wp, lane)
+  switch (WP) {
+    case 1: LRA_SHAPED_ROWS(1); break;
+    case 2: LRA_SHAPED_ROWS(2); break;
+    case 3: LRA_SHAPED_ROWS(3); break;
+    case 4: LRA_SHAPED_ROWS(4); break;
+    case 5: LRA_SHAPED_ROWS(5); break;
+    case 6: LRA_SHAPED_ROWS(6); break;
+    case 8: LRA_SHAPED_ROWS(8); break;
+    default: LRA_SHAPED_ROWS(SH_MAXWP);
+  }
+#undef LRA_SHAPED_ROWS
+  // the plane's global writes before the walk's cp.async reads; every
+  // warp done with the rows' shared memory before the walk reuses it
+  __threadfence_block();
+  group_sync(1, 32 * WP);
+  if (wp > 0) return;
+  const int n = bad ? -2
+                    : shaped_walk(sm.w, qlo + g.woff, wid + g.woff, plane,
+                                  g.poff, cells, ql, tl, maxw[r],
+                                  out + 3 * g.ooff, lane);
+  if (lane == 0) counts[r] = n;
+}
+
 }  // namespace
 
 // q, t: int8 [B, Q], [B, T]; qlen, tlen, kband: int32 [B]; planes: int8
@@ -546,4 +1018,27 @@ extern "C" int lra_banded_refine_traced_packed(
   if (WP > 1 && CPT == 9) LRA_K5_LAUNCH(9, true);
 #undef LRA_K5_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// The long shaped-band refine regions of a round (refine_shaped_kernel):
+// q, t int8 codes; qlo int32 and wid int16, one a row (tlen + 1 a
+// region); meta int64 [R, 7] (struct Region); maxw int32 [R], each
+// region's widest row (at most 512); WP: warps a block, the most
+// shaped_warps of a region; plane uint8, the regions' window
+// cells back to back and 16 bytes more; out int32 [sum (qlen + tlen + 2),
+// 3]; counts int32 [R]: blocks, or -2 past lim.  ops/refine_shaped.py
+// packs them.
+extern "C" int lra_refine_shaped(const void* q, const void* t,
+                                 const void* qlo, const void* wid,
+                                 const void* meta, const void* maxw,
+                                 void* plane, void* out, void* counts, int R,
+                                 int m, int mm, int indel, float lim, int WP,
+                                 void* stream) {
+  if (R == 0) return 0;
+  if (WP < 1 || WP > SH_MAXWP) return (int)cudaErrorInvalidValue;
+  refine_shaped_kernel<<<R, 32 * WP, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)q, (const int8_t*)t, (const int*)qlo, (const short*)wid,
+      (const long long*)meta, (const int*)maxw, (uint8_t*)plane, (int*)out,
+      (int*)counts, (float)m, (float)mm, (float)indel, lim);
+  return (int)cudaGetLastError();
 }

@@ -161,6 +161,15 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+    lib.lrn_refine_windows.restype = ctypes.c_int64
+    lib.lrn_refine_windows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+    lib.lrn_refine_dp_windowed.restype = ctypes.c_int64
+    lib.lrn_refine_dp_windowed.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
     lib.lrn_refine_dp.restype = ctypes.c_int64
     lib.lrn_refine_dp.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -690,6 +699,51 @@ def refine_dp_shaped(q: np.ndarray, t: np.ndarray, path: np.ndarray,
         t.ctypes.data_as(ctypes.c_void_p), len(t),
         path.ctypes.data_as(ctypes.c_void_p), len(path),
         k, m, mm, indel,
+        out.ctypes.data_as(ctypes.c_void_p), cap)
+    if nb < 0:
+        return None
+    return out[:nb].copy()
+
+
+def refine_windows(path: np.ndarray, qlen: int, tlen: int, k: int):
+    """The shaped band's row windows for a region of qlen x tlen with
+    block path ``path`` (refine_dp_shaped's first phase): (qlo, qhi),
+    int32 [tlen + 1] each, row j covering q in [qlo[j], qhi[j]].  None
+    if the native lib is unavailable or the input is degenerate."""
+    lib = _load()
+    if not lib:
+        return None
+    path = np.ascontiguousarray(path, np.int64)
+    qlo = np.empty(tlen + 1, np.int32)
+    qhi = np.empty(tlen + 1, np.int32)
+    cells = lib.lrn_refine_windows(
+        path.ctypes.data_as(ctypes.c_void_p), len(path), qlen, tlen, k,
+        qlo.ctypes.data_as(ctypes.c_void_p),
+        qhi.ctypes.data_as(ctypes.c_void_p))
+    if cells < 0:
+        return None
+    return qlo, qhi
+
+
+def refine_dp_windowed(q: np.ndarray, t: np.ndarray, qlo: np.ndarray,
+                       qhi: np.ndarray, m: int, mm: int, indel: int):
+    """refine_dp_shaped's second phase: the DP and traceback over the
+    row windows of refine_windows.  Returns blocks as refine_dp_shaped
+    does, or None if unavailable."""
+    lib = _load()
+    if not lib:
+        return None
+    q = np.ascontiguousarray(q, np.int8)
+    t = np.ascontiguousarray(t, np.int8)
+    qlo = np.ascontiguousarray(qlo, np.int32)
+    qhi = np.ascontiguousarray(qhi, np.int32)
+    cap = len(q) + len(t) + 2
+    out = np.empty((cap, 3), np.int64)
+    nb = lib.lrn_refine_dp_windowed(
+        q.ctypes.data_as(ctypes.c_void_p), len(q),
+        t.ctypes.data_as(ctypes.c_void_p), len(t),
+        qlo.ctypes.data_as(ctypes.c_void_p),
+        qhi.ctypes.data_as(ctypes.c_void_p), m, mm, indel,
         out.ctypes.data_as(ctypes.c_void_p), cap)
     if nb < 0:
         return None

@@ -1163,35 +1163,52 @@ extern "C" int64_t lrn_plan_indel_regions(
 // mirror bit-for-bit including the -1e30 rail absorption semantics.
 // Returns n blocks written to blocks_out (int64 triples q,t,len,
 // region-local), or -1 if max_blocks too small.
-// Shaped-band variant: per-row q windows dilated from the region's
-// existing block path (the reference's qS/qE construction,
-// IndelRefine.h:219-330, computed as a slightly wider superset:
-// path dilated k rows in t and k+1 in q, then made monotone like the
-// reference's two passes at :318-325).  Cost O(path_len * (2k+3))
-// regardless of total diagonal drift — the rectangular band pays
-// O(len * 2*(k+drift)) and explores paths the reference's shaped band
-// cannot, so this is both the fast and the more faithful geometry.
-// path_blocks: job-local (q,t,len) triples of the region's current
-// alignment (must start at (0,0) and end at (qlen,tlen) corners).
-// Returns blocks written, or -1 on overflow/degenerate input.
-int64_t lrn_refine_dp_shaped(
-    const int8_t* q, int64_t qlen, const int8_t* t, int64_t tlen,
-    const int64_t* path_blocks, int64_t npb, int64_t k, int64_t m,
-    int64_t mm, int64_t indel, int64_t* blocks_out, int64_t max_blocks) {
-  if (tlen < 1 || qlen < 1 || npb < 1) return -1;
-  const float NEGF = -1.0e30f;
-  const int8_t A_DONE = 0, A_LEFT = 1, A_DOWN = 2, A_DIAG = 3;
-  const int8_t A_DELC = 4, A_INSC = 5;
-  const int8_t DEL_OPEN = 8, INS_OPEN = 16;
-  const float fopen = (float)(2 * indel + 1);
-  const float find = (float)indel;
+// Shaped-band variant, in two phases: lrn_refine_windows builds the
+// per-row q windows, dilated from the region's existing block path
+// (the reference's qS/qE construction, IndelRefine.h:219-330, computed
+// as a slightly wider superset: path dilated k rows in t and k+1 in q,
+// then made monotone like the reference's two passes at :318-325);
+// lrn_refine_dp_windowed solves the DP over given windows and walks
+// back.  lrn_refine_dp_shaped runs both.  The device kernel
+// (csrc/banded_refine.cu, refine_shaped_kernel) solves the windows of
+// lrn_refine_windows, so both solvers share one band geometry.  Cost
+// O(path_len * (2k+3)) regardless of total diagonal drift — the
+// rectangular band pays O(len * 2*(k+drift)) and explores paths the
+// reference's shaped band cannot, so this is both the fast and the
+// more faithful geometry.
 
+// Row windows of the shaped band: row j (0..tlen) covers q in
+// [qlo[j], qhi[j]] (int32, tlen + 1 each), monotone non-decreasing in
+// both bounds, with qlo[0] = 0 and qhi[tlen] = qlen.  path_blocks:
+// job-local (q,t,len) triples of the region's current alignment (must
+// start at (0,0) and end at (qlen,tlen) corners).  Returns the window
+// cells (the sum of the widths), or -1 on degenerate input.
+int64_t lrn_refine_windows(const int64_t* path_blocks, int64_t npb,
+                           int64_t qlen, int64_t tlen, int64_t k,
+                           int32_t* qlo, int32_t* qhi) {
+  if (tlen < 1 || qlen < 1 || npb < 1) return -1;
+  const int32_t MAXI = INT32_MAX, MINI = INT32_MIN;
+  const int64_t W = 2 * k + 1;
+  const int64_t n_ext = tlen + 1 + 2 * k;
+  // thread-local scratch, int32 (a region's coordinates fit): per-row
+  // path extents, then van Herk's prefix/suffix extremes over blocks of
+  // W rows of the extents padded by k empty rows on each side
+  static thread_local std::vector<int32_t> scr_tl;
+  const size_t need = (size_t)(2 * (tlen + 1) + 4 * n_ext);
+  if (scr_tl.size() < need) scr_tl.resize(need);
+  int32_t* const pmin = scr_tl.data();
+  int32_t* const pmax = pmin + (tlen + 1);
+  int32_t* const pre_min = pmax + (tlen + 1);
+  int32_t* const suf_min = pre_min + n_ext;
+  int32_t* const pre_max = suf_min + n_ext;
+  int32_t* const suf_max = pre_max + n_ext;
+  std::fill(pmin, pmin + tlen + 1, MAXI);
+  std::fill(pmax, pmax + tlen + 1, MINI);
   // per-row path extent (pmin/pmax over path cells with t == row)
-  std::vector<int64_t> pmin(tlen + 1, INT64_MAX), pmax(tlen + 1, INT64_MIN);
   auto touch = [&](int64_t pi, int64_t pj) {
     if (pj < 0 || pj > tlen) return;
-    if (pi < pmin[pj]) pmin[pj] = pi;
-    if (pi > pmax[pj]) pmax[pj] = pi;
+    if (pi < pmin[pj]) pmin[pj] = (int32_t)pi;
+    if (pi > pmax[pj]) pmax[pj] = (int32_t)pi;
   };
   for (int64_t b = 0; b < npb; b++) {
     const int64_t bq = path_blocks[b * 3], bt = path_blocks[b * 3 + 1];
@@ -1214,47 +1231,44 @@ int64_t lrn_refine_dp_shaped(
   // row window = own-row path extent dilated k+1 in q, UNION the bare
   // path extents of rows within +-k (the reference's ki loop only
   // extends neighbor rows to the bare q, not q+-k — IndelRefine.h:
-  // 263-283); on a diagonal this gives width 2k+3, not 4k+3
-  std::vector<int64_t> qlo(tlen + 1), qhi(tlen + 1);
+  // 263-283); on a diagonal this gives width 2k+3, not 4k+3.
   // van Herk sliding min/max over the +-k row window: O(1) per row
-  const int64_t W = 2 * k + 1;
-  const int64_t n_ext = tlen + 1 + 2 * k;
-  std::vector<int64_t> emin(n_ext, INT64_MAX), emax(n_ext, INT64_MIN);
-  for (int64_t j = 0; j <= tlen; j++) {
-    emin[j + k] = pmin[j];
-    emax[j + k] = pmax[j];
-  }
-  std::vector<int64_t> pre_min(n_ext), suf_min(n_ext);
-  std::vector<int64_t> pre_max(n_ext), suf_max(n_ext);
+  auto emin = [&](int64_t x) {
+    return x >= k && x - k <= tlen ? pmin[x - k] : MAXI;
+  };
+  auto emax = [&](int64_t x) {
+    return x >= k && x - k <= tlen ? pmax[x - k] : MINI;
+  };
   for (int64_t x = 0; x < n_ext; x++) {
-    pre_min[x] = (x % W) ? std::min(pre_min[x - 1], emin[x]) : emin[x];
-    pre_max[x] = (x % W) ? std::max(pre_max[x - 1], emax[x]) : emax[x];
+    pre_min[x] = (x % W) ? std::min(pre_min[x - 1], emin(x)) : emin(x);
+    pre_max[x] = (x % W) ? std::max(pre_max[x - 1], emax(x)) : emax(x);
   }
   for (int64_t x = n_ext - 1; x >= 0; x--) {
     const bool edge = (x == n_ext - 1) || ((x + 1) % W == 0);
-    suf_min[x] = edge ? emin[x] : std::min(suf_min[x + 1], emin[x]);
-    suf_max[x] = edge ? emax[x] : std::max(suf_max[x + 1], emax[x]);
+    suf_min[x] = edge ? emin(x) : std::min(suf_min[x + 1], emin(x));
+    suf_max[x] = edge ? emax(x) : std::max(suf_max[x + 1], emax(x));
   }
+  int64_t cells = 0;
   for (int64_t j = 0; j <= tlen; j++) {
     // window [j-k, j+k] in original rows = [j, j+2k] in extended
     const int64_t a = j, b = j + 2 * k;
     const int64_t nlo = std::min(suf_min[a], pre_min[b]);
     const int64_t nhi = std::max(suf_max[a], pre_max[b]);
     int64_t lo, hi;
-    if (pmin[j] != INT64_MAX) {
+    if (pmin[j] != MAXI) {
       lo = pmin[j] - (k + 1);
       hi = pmax[j] + (k + 1);
     } else {
       lo = INT64_MAX;
       hi = INT64_MIN;
     }
-    if (nlo != INT64_MAX) {
+    if (nlo != MAXI) {
       if (nlo - 1 < lo) lo = nlo - 1;
       if (nhi + 1 > hi) hi = nhi + 1;
     }
     if (lo == INT64_MAX) { lo = 0; hi = qlen; }  // empty row: full width
-    qlo[j] = lo < 0 ? 0 : lo;
-    qhi[j] = hi > qlen ? qlen : hi;
+    qlo[j] = (int32_t)(lo < 0 ? 0 : lo);
+    qhi[j] = (int32_t)(hi > qlen ? qlen : hi);
   }
   // monotone passes (reference IndelRefine.h:318-325)
   for (int64_t j = tlen; j >= 1; j--)
@@ -1262,7 +1276,25 @@ int64_t lrn_refine_dp_shaped(
   for (int64_t j = 0; j < tlen; j++)
     if (qhi[j] > qhi[j + 1]) qhi[j + 1] = qhi[j];
   qlo[0] = 0;
-  if (qhi[tlen] < qlen) qhi[tlen] = qlen;
+  if (qhi[tlen] < qlen) qhi[tlen] = (int32_t)qlen;
+  for (int64_t j = 0; j <= tlen; j++) cells += qhi[j] - qlo[j] + 1;
+  return cells;
+}
+
+// The shaped-band DP and traceback over the row windows qlo/qhi of
+// lrn_refine_windows (tlen + 1 rows).  Returns blocks written, or -1 on
+// overflow/degenerate input.
+int64_t lrn_refine_dp_windowed(
+    const int8_t* q, int64_t qlen, const int8_t* t, int64_t tlen,
+    const int32_t* qlo, const int32_t* qhi, int64_t m, int64_t mm,
+    int64_t indel, int64_t* blocks_out, int64_t max_blocks) {
+  if (tlen < 1 || qlen < 1) return -1;
+  const float NEGF = -1.0e30f;
+  const int8_t A_DONE = 0, A_LEFT = 1, A_DOWN = 2, A_DIAG = 3;
+  const int8_t A_DELC = 4, A_INSC = 5;
+  const int8_t DEL_OPEN = 8, INS_OPEN = 16;
+  const float fopen = (float)(2 * indel + 1);
+  const float find = (float)indel;
 
   // flat plane storage with per-row offsets; scratch is thread-local
   // (423 calls per ONT batch — per-call malloc+first-touch of up to
@@ -1467,6 +1499,20 @@ int64_t lrn_refine_dp_shaped(
     }
   }
   return emit_refine_blocks(ops, blocks_out, max_blocks);
+}
+
+// Both phases: the windows of path_blocks, then the DP over them.
+int64_t lrn_refine_dp_shaped(
+    const int8_t* q, int64_t qlen, const int8_t* t, int64_t tlen,
+    const int64_t* path_blocks, int64_t npb, int64_t k, int64_t m,
+    int64_t mm, int64_t indel, int64_t* blocks_out, int64_t max_blocks) {
+  if (tlen < 1 || qlen < 1 || npb < 1) return -1;
+  std::vector<int32_t> qlo(tlen + 1), qhi(tlen + 1);
+  if (lrn_refine_windows(path_blocks, npb, qlen, tlen, k, qlo.data(),
+                         qhi.data()) < 0)
+    return -1;
+  return lrn_refine_dp_windowed(q, qlen, t, tlen, qlo.data(), qhi.data(), m,
+                                mm, indel, blocks_out, max_blocks);
 }
 
 int64_t lrn_refine_dp(const int8_t* q, int64_t qlen, const int8_t* t,

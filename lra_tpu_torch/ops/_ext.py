@@ -44,7 +44,7 @@ LAUNCHES = {"chain_scores_blocked": 0, "banded_global_traced_packed": 0,
             "banded_refine_traced_packed": 0, "banded_pallas_rowsync": 0,
             "one_gap_traced": 0, "chain_mask_from_scores": 0,
             "chain_scores_windowed": 0, "chain_scores": 0,
-            "banded_global_kernel": 0}
+            "banded_global_kernel": 0, "refine_shaped": 0}
 
 _libs: dict = {}
 _lock = threading.RLock()

@@ -25,6 +25,7 @@ from ..ops.affine_kernel import (banded_global_np,
                                  traceback_refine, unpack_ops)
 from ..ops.affine_pallas import (banded_pallas_rowsync,
                                  blocks_from_rowsync, pallas_supported)
+from ..ops import refine_shaped
 from ..ops.one_gap import (blocks_from_one_gap_ops, one_gap_traced,
                            pack_one_gap_bucket)
 from ..options import Options
@@ -315,6 +316,65 @@ def job_block_list(job) -> list:
     return bl
 
 
+class _ShapedRows:
+    """The long path-bearing refine rows of a round that the shaped-band
+    kernel takes (ops/refine_shaped.py): of ``host_idx``, each row of
+    ``long_rows`` whose job carries a path, whose windows
+    (native.refine_windows) refine_shaped.route admits.  The others stay
+    in ``host_idx`` (``left``: those the rule kept there).  ``long_rows``
+    counts the window rows (tlen + 1) of every long refine row, the
+    share ``shaped_rows`` is read against."""
+
+    def __init__(self, tb, host_idx, long_rows, opts: Options):
+        self.tb = tb
+        self.rows, self.regions, self.left = [], [], 0
+        self.counts = self.out = self.packed = None
+        self.long_rows = int(sum(int(tb.tl[i]) + 1 for i in host_idx
+                                 if long_rows[i]))
+        keep = []
+        for i in host_idx:
+            path = tb.jobs[i].path if tb.jobs is not None else None
+            win = (native.refine_windows(path, int(tb.ql[i]), int(tb.tl[i]),
+                                         opts.refine_band)
+                   if long_rows[i] and path is not None else None)
+            if win is None:
+                keep.append(i)
+                continue
+            if not refine_shaped.route(int(tb.ql[i]), int(tb.tl[i]),
+                                       int((win[1] - win[0]).max()) + 1,
+                                       opts.local_match, opts.local_mismatch,
+                                       opts.local_indel):
+                self.left += 1
+                keep.append(i)
+                continue
+            self.rows.append(i)
+            self.regions.append((tb.q(i), tb.t(i)) + win)
+        self.host_idx = keep
+
+    def launch(self, opts: Options, device) -> None:
+        if not self.rows:
+            return
+        self.packed = refine_shaped.pack(
+            self.regions, pin=torch.device(device).type == "cuda")
+        self.regions = None
+        self.counts, self.out = refine_shaped.solve(
+            self.packed, opts.local_match, opts.local_mismatch,
+            opts.local_indel, device)
+
+    def finish(self, counts, sink) -> None:
+        """The regions' blocks into ``sink``."""
+        sink.lists(self.rows,
+                   refine_shaped.fetch_blocks(self.packed, counts, self.out))
+        self.out = None
+
+    def counters(self) -> dict:
+        p = self.packed
+        return {"shaped_jobs": len(self.rows),
+                "shaped_rows": p.rows if p else 0,
+                "shaped_cells": p.cells if p else 0,
+                "shaped_left": self.left, "long_rows": self.long_rows}
+
+
 def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
                    device="cuda", tag: str = "gap_align") -> None:
     """Solves a round's gaps: ``jobs`` is a GapTable, whose ``blocks`` and
@@ -477,6 +537,13 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
     # serializing in front of it).
     host_idx = np.nonzero(~resolved & (~in_regime | long_refine)
                           & ~og_mask)[0].tolist()
+    # of those, the long path-bearing refine regions: the shaped-band
+    # kernel (ops/refine_shaped.py) on the card, its twin on the CPU;
+    # launched after the buckets below, before the host jobs run
+    shaped = (_ShapedRows(tb, host_idx, long_refine, opts) if use_device
+              else None)
+    if shaped is not None:
+        host_idx = shaped.host_idx
 
     def run_host_jobs():
       host_blocks = []
@@ -613,6 +680,9 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
         pending.append(("onegap", np.asarray(rows, np.int64), None, None,
                         (ops_u8, jump_u8, B, L)))
 
+    if shaped is not None:
+        shaped.launch(opts, device)
+
     # every device bucket is now in flight; do the host-side jobs while
     # the chip works
     if rnd:
@@ -627,6 +697,8 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
                    if K == "rowsync"]
     flat_parts += [p for K, _, _, _, buf in pending if K == "onegap"
                    for p in (buf[0].reshape(-1), buf[1])]
+    if shaped is not None and shaped.counts is not None:
+        flat_parts.append(shaped.counts.view(torch.uint8))
     # every result plane merges into one flat uint8 buffer: one
     # device-to-host copy for the round
     if rnd:
@@ -686,6 +758,10 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
             sink.lists(rows, [blocks_from_one_gap_ops(plane[b],
                                                       int(jump[b]))
                               for b in range(len(rows))])
+    if shaped is not None and shaped.counts is not None:
+        n = 4 * len(shaped.rows)
+        shaped.finish(merged[off:off + n].view(np.int32), sink)
+        off += n
     tb.blocks, tb.boff = sink.finish()
     if tb.jobs is not None:
         boff = tb.boff.tolist()
@@ -696,4 +772,5 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
         rnd.record(tag, buckets=len(pending), jobs=n_rows,
                    small_jobs=len(small_idx), table_rows=table_rows,
                    object_rows=n_rows - table_rows,
-                   host_rows=len(host_idx))
+                   host_rows=len(host_idx),
+                   **(shaped.counters() if shaped is not None else {}))

@@ -313,6 +313,54 @@ def refine_problems(rng, B: int, S: int, K: int) -> tuple:
             kb.astype(np.int32))
 
 
+def shaped_region(rng, rows: int, indel: float = 0.01, snp: float = 0.01,
+                  max_indel: int = 3, legs: int = 0, max_leg: int = 48,
+                  reverse: bool = False) -> tuple:
+    """A long indel-refine region for the shaped-band DP: (q, t, path).
+    t is `rows` random codes; q is t with SNPs at rate `snp`, insertions
+    and deletions of 1..max_indel bases at rate `indel` each (a 50:50
+    mix), and `legs` gaps of up to `max_leg` bases (which widen the
+    windows of the 2k + 1 rows around them).  path: the true alignment's
+    (q, t, len) blocks, int64, from (0, 0) to (len(q), rows), as the
+    indel-refine round passes a region's current path.  reverse: the
+    region as a reverse-strand read gives it (both sequences and the
+    path reversed)."""
+    t = rng.integers(0, 4, rows).astype(np.int8)
+    n_ev = int(rng.binomial(rows, 2 * indel)) + legs
+    pos = np.sort(rng.choice(np.arange(1, rows), size=min(n_ev, rows - 1),
+                             replace=False))
+    big = np.zeros(len(pos), bool)
+    big[rng.choice(len(pos), size=min(legs, len(pos)), replace=False)] = True
+    q_parts, blocks = [], []
+    qi = ti = 0
+    for p, b in zip(pos.tolist(), big.tolist()):
+        if p <= ti:
+            continue
+        run = p - ti
+        blocks.append((qi, ti, run))
+        q_parts.append(t[ti:p])
+        qi += run
+        ti = p
+        g = int(rng.integers(1, (max_leg if b else max_indel) + 1))
+        if rng.random() < 0.5:
+            q_parts.append(rng.integers(0, 4, g).astype(np.int8))
+            qi += g
+        else:
+            ti = min(rows, ti + g)
+    blocks.append((qi, ti, rows - ti))
+    q_parts.append(t[ti:])
+    q = np.concatenate(q_parts).astype(np.int8)
+    flip = rng.random(len(q)) < snp
+    q[flip] = (q[flip] + rng.integers(1, 4, int(flip.sum()))) % 4
+    path = np.array(blocks, np.int64)
+    if reverse:
+        q, t = q[::-1].copy(), t[::-1].copy()
+        path = np.stack([len(q) - path[:, 0] - path[:, 2],
+                         rows - path[:, 1] - path[:, 2], path[:, 2]],
+                        1)[::-1].copy()
+    return q, t, path
+
+
 def rowsync_problems(rng, B: int, S: int, K: int) -> tuple:
     """A [B, S] bucket for P1's row walk (q, t int8; qlen, tlen, kband
     int32): refine_problems' rows, the first ones replaced by the walk's

@@ -216,7 +216,7 @@ def test_traced_contig_stream_records_the_windowed_counts_and_parts(
     refine = [s for s in spans if s.kind == "round"
               and s.name == "indel_refine"]
     assert len(refine) == 2
-    host_rows = 0
+    shaped = 0
     for r in refine:
         host, = [c for c in kids[r.id] if c.name == "indel_refine.host"]
         pack, = [c for c in kids[r.id] if c.name == "indel_refine.pack"]
@@ -225,5 +225,8 @@ def test_traced_contig_stream_records_the_windowed_counts_and_parts(
         assert host.counts["host_rows"] == r.counts["host_rows"]
         # the span is the round's host_s
         assert abs(host.wall_ns / 1e9 - pack.counts["host_s"]) < 1e-6
-        host_rows += r.counts["host_rows"]
-    assert host_rows > 0
+        shaped += r.counts["shaped_jobs"]
+        assert r.counts["shaped_rows"] >= r.counts["shaped_jobs"]
+    # the contigs' long path-bearing regions take the shaped-band route
+    # (ops/refine_shaped.py; its twin on the CPU), no longer the host rows
+    assert shaped > 0

@@ -119,7 +119,9 @@ def main(argv=None, **run_kw) -> int:
 def round_counts(spans: list) -> list:
     """One line per round tag: its rounds and each count its round spans
     carry (buckets, jobs, launches; the alignment rounds' table_rows,
-    object_rows and host_rows), summed over the window."""
+    object_rows and host_rows; the indel-refine round's shaped_jobs,
+    shaped_rows, shaped_cells, shaped_left and long_rows), summed over
+    the window."""
     agg: dict = {}
     for s in spans:
         if s.kind == "round":
