@@ -116,8 +116,9 @@ failure.  Phases:
    under torch.profiler: the device's busy share and the device time and
    launches of the hand kernels against all other kernels.
 
-Also: lra_tpu_torch.native.available(); the full CCS use_pallas run's
-SAM lines equal to the full CCS default run's; a JSON line
+Also: the path and ABI version of the native host library it loaded
+(built first if stale; a failed build ends the run); the full CCS
+use_pallas run's SAM lines equal to the full CCS default run's; a JSON line
 {"sam_sha256": {path: SHA-256 of its full SAM lines}} before the card's
 name.  The line before the last is the kernels JSON object; the last
 line is {"ok": true, "device": {...}}.
@@ -2623,8 +2624,9 @@ def main() -> int:
 
     from lra_tpu_torch import native
 
-    log(f"native host library (lra_tpu_torch.native.available()): "
-        f"{native.available()}")
+    lib = native._load()
+    log(f"native host library: {native._SO} (ABI version "
+        f"{lib.lrn_abi_version()})")
     t0 = time.perf_counter()
     kernel_phase(torch.device("cuda"))
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")

@@ -31,6 +31,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import native
+
 MISSING = -(1 << 60)
 
 # arrows (reference: AffineOneGapAlign.h:163-170)
@@ -48,29 +50,17 @@ class AlnResult:
 
 def fast_one_gap_align(q: np.ndarray, t: np.ndarray, m: int, mm: int,
                        indel: int, k: int) -> AlnResult:
-    """Drop-in for affine_one_gap_align that takes the row-vectorized
+    """Drop-in for affine_one_gap_align that takes the native
     banded-global path when the band covers the drift (the common case;
-    blocks identical — see tests/test_affine_kernel.py), falling back to
-    the per-cell one-gap DP otherwise."""
+    blocks identical — see tests/test_affine_kernel.py), and the per-cell
+    one-gap DP otherwise."""
     qLen, tLen = len(q), len(t)
     diag = max(1, min(qLen, tLen))
     kk = min(diag, k)
     if qLen and tLen and diag + 2 * kk >= max(qLen, tLen):
         K = 2 * kk
-        from .. import native
-
-        res = native.banded_align(q, t, K, K, m, mm, indel)
-        if res is not None:
-            blocks, score = res
-            return AlnResult(score, blocks, [])
-        from ..ops.affine_kernel import banded_global_np, traceback_banded
-
-        score, arrows = banded_global_np(
-            q.reshape(1, -1).astype(np.int8), t.reshape(1, -1).astype(np.int8),
-            np.array([qLen], np.int32), np.array([tLen], np.int32),
-            K, m, mm, indel, np.array([K], np.int32))
-        blocks, ops = traceback_banded(arrows[0], qLen, tLen, K)
-        return AlnResult(int(score[0]), blocks, ops)
+        blocks, score = native.banded_align(q, t, K, K, m, mm, indel)
+        return AlnResult(score, blocks, [])
     return affine_one_gap_align(q, t, m, mm, indel, k)
 
 

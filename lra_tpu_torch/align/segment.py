@@ -41,7 +41,7 @@ class Segment:
     order: int = 0
     runtime: int = 0
     md: str = ""                      # MD:Z tag (when opts.print_md)
-    # indel-refine region tiling (plan_refine_regions), set by
+    # indel-refine region tiling (native.plan_indel_regions), set by
     # queue_indel_refine_jobs and consumed by splice_refined_blocks
     refine_plan: list = None
 

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from ..io.genome import Genome
 from ..options import Options
 from .minimizers import minimizers
@@ -259,12 +260,10 @@ def _window_thin(pos: np.ndarray, freq: np.ndarray, opts: Options):
                 final[sel[sub]] = True
                 del sel, sub
             return final
-    from .. import native
-
     # (freq asc, index desc): stable argsort of the reversed array;
     # freq values are small ints, so the native counting sort applies
     rev = np.ascontiguousarray(freq[::-1], np.int32)
-    o = native.counting_argsort_i32(rev) if native.available() else None
+    o = native.counting_argsort_i32(rev)
     if o is None:
         o = np.argsort(rev, kind="stable")
     ranked = n - 1 - o
@@ -275,8 +274,7 @@ def _window_thin(pos: np.ndarray, freq: np.ndarray, opts: Options):
     # int64 vectors of `range` entries (~16B/window), so a 3Gb
     # genome at winsize 12 (~2.6e8 windows) would transiently eat
     # ~4GB; past 1<<26 windows the numpy stable sort is cheaper
-    worder = (native.counting_argsort_i32(win32, 1 << 26)
-              if native.available() else None)
+    worder = native.counting_argsort_i32(win32, 1 << 26)
     if worder is None:
         worder = np.argsort(win, kind="stable")
     wsorted = win[worder]

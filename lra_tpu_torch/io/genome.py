@@ -14,8 +14,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from .. import seq as sequtils
-from .fasta import read_fasta
 
 
 @dataclass
@@ -50,22 +50,9 @@ class Genome:
 
     @classmethod
     def from_fasta(cls, path: str) -> "Genome":
-        from .. import native
-        if native.available():
-            loaded = native.load_seqs(path)
-            if loaded is not None:
-                names, offsets, codes, _ = loaded
-                return cls(names, offsets[1:].copy(), codes)
-        names, ends, parts = [], [], []
-        off = 0
-        for rec in read_fasta(path):
-            names.append(rec.name)
-            codes = sequtils.encode(rec.seq)
-            off += len(codes)
-            ends.append(off)
-            parts.append(codes)
-        return cls(names, np.asarray(ends, dtype=np.int64),
-                   np.concatenate(parts) if parts else np.zeros(0, np.uint8))
+        """Load a FASTA(.gz) genome with the native loader."""
+        names, offsets, codes, _ = native.load_seqs(path)
+        return cls(names, offsets[1:].copy(), codes)
 
     @classmethod
     def from_seqs(cls, named_seqs) -> "Genome":

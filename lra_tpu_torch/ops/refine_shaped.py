@@ -175,9 +175,6 @@ def _solve_twin(p: Packed, m, mm, indel):
         bl = native.refine_dp_windowed(q[qo:qo + ql], t[to:to + tl], lo,
                                        lo + wid[wo:wo + tl + 1] - 1, m, mm,
                                        indel)
-        if bl is None:
-            raise RuntimeError("refine_shaped: the native library is not "
-                               "available")
         counts[r] = len(bl)
         out[bo:bo + len(bl)] = bl
     return torch.from_numpy(counts), torch.from_numpy(out)

@@ -21,8 +21,7 @@ from ..ops.affine_kernel import (banded_global_np,
                                  banded_global_traced_packed,
                                  banded_refine_np,
                                  banded_refine_traced_packed,
-                                 blocks_from_ops_batch, traceback_banded,
-                                 traceback_refine, unpack_ops)
+                                 traceback_banded, traceback_refine)
 from ..ops.affine_pallas import (banded_pallas_rowsync,
                                  blocks_from_rowsync, pallas_supported)
 from ..ops import refine_shaped
@@ -554,7 +553,7 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
             # (identical recurrence + tie order).  With a region path,
             # the shaped-band variant follows it at O(len * 2k+3)
             # regardless of drift (the reference's own geometry);
-            # otherwise the rectangular band; numpy mirror as fallback
+            # otherwise, or on a degenerate region, the rectangular band
             K1 = int(band_in_v[i])
             blocks = None
             path = tb.jobs[i].path if tb.jobs is not None else None
@@ -568,15 +567,6 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
                                           opts.local_match,
                                           opts.local_mismatch,
                                           opts.local_indel)
-            if blocks is None:
-                _sc, planes = banded_refine_np(
-                    q.reshape(1, -1).astype(np.int8),
-                    t.reshape(1, -1).astype(np.int8),
-                    np.array([len(q)], np.int32),
-                    np.array([len(t)], np.int32), K1, opts.local_match,
-                    opts.local_mismatch, opts.local_indel,
-                    np.array([K1], np.int32))
-                blocks = traceback_refine(planes[0], len(q), len(t), K1)
             host_blocks.append(blocks)
             continue
         res = affine_one_gap_align(q, t, opts.local_match,
@@ -723,14 +713,9 @@ def solve_gap_jobs(jobs, opts: Options, use_device: bool = True,
             off += size
             # padded rows beyond the real jobs carry no alignment — skip
             # their unpack/cumsum cost (B is pow2-padded, up to 2x waste)
-            res = native.blocks_from_packed_arrays(plane[:n])
-            if res is not None:
-                flat, counts = res
-                sink.arrays(rows, counts, flat)
-                table_rows += n - int(np.count_nonzero(tb.adapted[rows]))
-            else:
-                sink.lists(rows, blocks_from_ops_batch(
-                    unpack_ops(plane[:n], mark_term=False)))
+            flat, counts = native.blocks_from_packed_arrays(plane[:n])
+            sink.arrays(rows, counts, flat)
+            table_rows += n - int(np.count_nonzero(tb.adapted[rows]))
         elif K == "refine_np":
             sink.lists(rows, [traceback_refine(buf[b], int(qlen[b]),
                                                int(tlen[b]),

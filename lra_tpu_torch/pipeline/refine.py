@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..align.affine import fast_one_gap_align
 from ..anchors import match_minimizer_lists
 from ..cluster.types import Cluster
@@ -118,85 +119,17 @@ def refine_clusters(clusters: list, genome, genome_li: LocalIndex,
         else:
             qend_by_t = q_by_t + c.k
 
-        from .. import native
-        if native.available():
-            qq, tt = native.local_reseed(
-                genome_li, rli, ls, le, chrom_off, read_len,
-                opts.local_max_freq, end_margin, t_sorted, q_by_t,
-                qend_by_t, lowacc_walk,
-                min_dn, max_dn, qlo, qhi, tlo, thi)
-            if len(qq):
-                if c.strand == 1:
-                    qq = _swap_strand(qq, read_len, k)
-                out.qpos = qq
-                out.tpos = tt
-                out.set_boundaries()
-            refined.append(out)
-            continue
-
-        got_q, got_t = [], []
-        for lsi in range(ls, le + 1):
-            g_lo = int(genome_li.seq_offsets[lsi]) - chrom_off
-            g_hi = int(genome_li.seq_offsets[lsi + 1]) - 1 - chrom_off
-            if g_lo >= g_hi or g_lo < 0:
-                continue
-            if lowacc_walk:
-                m_s = int(np.searchsorted(t_sorted, g_lo, side="right"))
-                m_e = int(np.searchsorted(t_sorted, g_hi, side="left"))
-                if m_s >= len(t_sorted) or m_e == m_s:
-                    continue
-                r_lo = int(q_by_t[m_s:m_e].min())
-                r_hi = int(qend_by_t[m_s:m_e].max())
-            else:
-                m_s = int(np.searchsorted(t_sorted, g_lo, side="left"))
-                m_e = int(np.searchsorted(t_sorted, g_hi, side="right"))
-                if m_s >= len(t_sorted):
-                    continue
-                m_e = min(m_e, len(t_sorted) - 1)
-                r_lo = int(q_by_t[m_s])
-                r_hi = int(q_by_t[m_e])
-                r_lo, r_hi = min(r_lo, r_hi), max(r_lo, r_hi)
-            if lsi == ls:
-                r_lo = max(0, r_lo - end_margin)
-            if lsi == le:
-                r_hi = min(read_len, r_hi + end_margin)
-            if r_lo > r_hi:
-                continue
-            qi_s = rli.lookup_window(r_lo)
-            qi_e = rli.lookup_window(min(r_hi, read_len - 1))
-            rb_lo, _ = rli.window_rows(qi_s)
-            _, rb_hi = rli.window_rows(qi_e)
-            gb_lo, gb_hi = genome_li.window_rows(lsi)
-            if rb_hi <= rb_lo or gb_hi <= gb_lo:
-                continue
-            gt = genome_li.tuples[gb_lo:gb_hi]
-            gp = genome_li.pos[gb_lo:gb_hi].astype(np.int64)
-            # read rows span multiple windows; tuples sorted per window only
-            for qi in range(qi_s, qi_e + 1):
-                a, b = rli.window_rows(qi)
-                if b <= a:
-                    continue
-                roff = int(rli.seq_offsets[qi])
-                qp, tp, _, _ = match_minimizer_lists(
-                    rli.tuples[a:b], rli.pos[a:b].astype(np.int64) + roff,
-                    gt, gp + g_lo, opts.local_max_freq)
-                if len(qp) == 0:
-                    continue
-                diag = tp - qp
-                keep = ((diag >= min_dn) & (diag <= max_dn)
-                        & (qp >= qlo) & (qp < qhi)
-                        & (tp >= tlo) & (tp < thi))
-                got_q.append(qp[keep])
-                got_t.append(tp[keep])
-        if got_q:
-            qq = np.concatenate(got_q)
-            tt = np.concatenate(got_t)
-            if len(qq):
-                if c.strand == 1:
-                    qq = _swap_strand(qq, read_len, k)
-                out.qpos = qq
-                out.tpos = tt
-                out.set_boundaries()
+        qq, tt = native.local_reseed(
+            genome_li, rli, ls, le, chrom_off, read_len,
+            opts.local_max_freq, end_margin, t_sorted, q_by_t,
+            qend_by_t, lowacc_walk,
+            min_dn, max_dn, qlo, qhi, tlo, thi)
+        if len(qq):
+            if c.strand == 1:
+                qq = _swap_strand(qq, read_len, k)
+            out.qpos = qq
+            out.tpos = tt
+            out.set_boundaries()
         refined.append(out)
     return refined
 
